@@ -1,0 +1,31 @@
+"""Carry hyperparameters over from a JAX-package model.
+
+The JAX package's fit is not ported yet; a model fitted there serves here::
+
+    raw = {k: np.asarray(v) for k, v in jax_gp._raw_dict().items()}
+    load_jax_params(torch_gp, raw)
+
+Both packages then compute the same posterior on the same data.  The raw
+values are the parameters before their transforms (``log`` of scale,
+lengthscales and noise by default), so the two models must use the same
+transforms, which the defaults do.
+"""
+
+import numpy as np
+import torch
+
+
+def load_jax_params(model, raw) -> None:
+    """Set ``model``'s raw parameters from a ``{name: array}`` dict with the
+    keys ``scale``, ``lengthscales``, ``noise``, ``factor_task_kernel`` and
+    ``noise_task_kernel``, each of the shape the model already has."""
+    missing = set(model.params) - set(raw)
+    if missing:
+        raise KeyError(f"raw parameters missing: {sorted(missing)}")
+    new = {}
+    for k, p in model.params.items():
+        v = np.asarray(raw[k], dtype=np.float64)
+        if v.shape != tuple(p.raw.shape):
+            raise ValueError(f"{k}: shape {v.shape} != model's {tuple(p.raw.shape)}")
+        new[k] = torch.tensor(v, dtype=model.dtype, device=model.device)
+    model._set_raw(new)

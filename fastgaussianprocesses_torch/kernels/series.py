@@ -1,0 +1,161 @@
+"""Series-form shift-invariant (lattice) kernels (counterpart of the
+shift-invariant half of ``fastgaussianprocesses_tpu/kernels/series.py``).
+
+Two pieces, as in the JAX package:
+
+* ``si_parts_from_delta`` / ``kernel_parts`` -- hyperparameter-independent
+  per-dimension series terms, cached per point set;
+* ``kernel_from_parts_t`` -- the cheap hyperparameter contraction
+  ``scale * prod_j(ind_j + lengthscale_j * part_j)``.
+
+``kernel_fused_scan`` evaluates cross-kernels at query scale without ever
+materializing a ``(N, n, d)`` tensor.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.bernoulli import bernoulli_poly
+
+
+def _si_coeff(alpha_j: int, b: int, k: int) -> float:
+    order = 2 * alpha_j - b - k
+    if order < 2:
+        raise ValueError(f"kernel order must be >= 2, got {order}")
+    return float((-1.0) ** (alpha_j + k + 1)) * math.exp(
+        2 * alpha_j * math.log(2 * math.pi) - math.lgamma(order + 1))
+
+
+def si_parts_from_delta(delta, alpha, beta, kappa):
+    """Per-dimension SI series terms at lattice differences ``delta``.
+
+    ``coeff_j * B_{2*alpha_j - beta_j - kappa_j}(delta_j)`` with
+    ``coeff_j = (-1)^(alpha_j + kappa_j + 1) * (2 pi)^(2 alpha_j) /
+    (2 alpha_j - beta_j - kappa_j)!``.
+
+    Args:
+        delta: (..., d) fractional differences in [0, 1).
+        alpha, beta, kappa: int vectors of length d.
+
+    Returns:
+        (..., d) tensor of series terms.
+    """
+    alpha = np.asarray(alpha, dtype=np.int64)
+    beta = np.asarray(beta, dtype=np.int64)
+    kappa = np.asarray(kappa, dtype=np.int64)
+    cols = []
+    for j in range(delta.shape[-1]):
+        a, b, k = int(alpha[j]), int(beta[j]), int(kappa[j])
+        cols.append(_si_coeff(a, b, k) * bernoulli_poly(2 * a - b - k, delta[..., j]))
+    return torch.stack(cols, dim=-1)
+
+
+def si_part_dim(delta_j, alpha_j: int, b: int, k: int):
+    """One dimension's SI series term (scalar orders; see si_parts_from_delta).
+    Returns a fresh buffer (callers may update it in place)."""
+    return bernoulli_poly(2 * alpha_j - b - k, delta_j).mul_(_si_coeff(alpha_j, b, k))
+
+
+def lattice_ominus(x, z):
+    """Group difference on the torus: ``(x - z) mod 1``."""
+    return (x - z).remainder_(1.0)
+
+
+def kernel_parts(parts_fn, x_or_b, z_or_b, ominus, beta0, beta1):
+    """Stack series terms over derivative multi-index pairs.
+
+    Returns (..., p0, p1, d) where ``...`` are the broadcast spatial dims of
+    ``ominus(x, z)``.
+    """
+    delta = ominus(x_or_b, z_or_b)
+    rows = []
+    for i0 in range(len(beta0)):
+        cols = [parts_fn(delta, beta0[i0], beta1[i1]) for i1 in range(len(beta1))]
+        rows.append(torch.stack(cols, dim=-2))
+    return torch.stack(rows, dim=-3)
+
+
+def _indicator(beta0, beta1, dtype, device):
+    ind = (np.asarray(beta0)[:, None, :] + np.asarray(beta1)[None, :, :]) == 0
+    return torch.as_tensor(ind, dtype=dtype, device=device)          # (p0, p1, d)
+
+
+def kernel_from_parts_t(parts_t, beta0, beta1, c0, c1, scale, lengthscales):
+    """Hyperparameter contraction of first-column parts in the ``(p0, p1, d, n)``
+    layout (point axis last).  Forward only: the lengthscale VJP belongs to
+    the fit step.
+
+    Args:
+        parts_t: (p0, p1, d, n).
+        scale: (*batch, 1); lengthscales: (*batch, d) or (*batch, 1).
+
+    Returns:
+        (*batch_broadcast, n) kernel first-column values.
+    """
+    ind = _indicator(beta0, beta1, parts_t.dtype, parts_t.device)
+    d = parts_t.shape[-2]
+    aniso = lengthscales.shape[-1] == d
+    # the product over d written out: no (*b, p0, p1, d, n) temporary, and no
+    # torch.prod reduction kernel (its first use on the card costs seconds of
+    # module loading)
+    terms = None
+    for j in range(d):
+        lsj = lengthscales[..., j if aniso else 0][..., None, None, None]   # (*b,1,1,1)
+        f = ind[:, :, j, None] + lsj * parts_t[..., j, :]                   # (*b,p0,p1,n)
+        terms = f if terms is None else terms.mul_(f)
+    c0 = torch.as_tensor(np.asarray(c0), dtype=parts_t.dtype, device=parts_t.device)
+    c1 = torch.as_tensor(np.asarray(c1), dtype=parts_t.dtype, device=parts_t.device)
+    out = torch.sum(torch.sum(terms * c1[:, None], dim=-2) * c0[:, None], dim=-2)
+    return scale * out
+
+
+def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
+                      scale, lengthscales, alpha):
+    """Kernel values without the ``(..., d)`` parts tensor: a loop over
+    dimension groups accumulating the product in one running buffer.
+
+    At query scale (chunk of ~59 rows against n = 2^20 points, d = 8) one
+    ``(chunk, n, d)`` tensor would be 2 GB; this loop keeps the live set to a
+    few ``(chunk, n)`` buffers (the running product, the current delta, the
+    current term) whatever ``d`` is.  Dimensions are grouped by their series
+    signature ``(alpha_j, beta0_j, beta1_j)`` and multiplied group by group
+    in the JAX package's order (its ``lax.scan`` per group), so float64
+    results agree to roundoff.
+
+    ``part_dim_fn(delta_j, j, b, k)`` may depend on ``j`` only through
+    ``alpha[j]``.
+    """
+    d = x_or_b.shape[-1]
+    alpha = np.broadcast_to(np.asarray(alpha, dtype=np.int64), (d,))
+    dtype = scale.dtype
+    ls = lengthscales + torch.zeros((d,), dtype=dtype, device=scale.device)  # (*batch, d)
+    batch = tuple(ls.shape[:-1])
+    # numpy, not torch.broadcast_shapes: the torch one imports sympy on first
+    # use, seconds of a process's first query
+    sp = tuple(np.broadcast_shapes(tuple(x_or_b.shape[:-1]), tuple(z_or_b.shape[:-1])))
+    sp_ndim = len(sp)
+    total = None
+    for i0 in range(len(beta0)):
+        for i1 in range(len(beta1)):
+            groups = {}
+            for j in range(d):
+                key = (int(alpha[j]), int(beta0[i0, j]), int(beta1[i1, j]))
+                groups.setdefault(key, []).append(j)
+            prod = torch.ones(batch + sp, dtype=dtype, device=scale.device)
+            for (_, b, k), idx in groups.items():
+                ind = 1.0 if (b + k) == 0 else 0.0
+                for j in idx:
+                    delta = ominus(x_or_b[..., j], z_or_b[..., j])
+                    part = part_dim_fn(delta, idx[0], b, k)
+                    del delta
+                    lsj = ls[..., j].reshape(batch + (1,) * sp_ndim)
+                    term = part.mul_(lsj) if not batch else part * lsj
+                    prod.mul_(term.add_(ind))
+                    del part, term
+            w = float(c0[i0] * c1[i1])
+            contrib = prod if w == 1.0 else w * prod
+            total = contrib if total is None else total + contrib
+    scale_r = scale[..., 0].reshape(tuple(scale.shape[:-1]) + (1,) * sp_ndim)
+    return scale_r * total

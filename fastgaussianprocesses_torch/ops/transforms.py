@@ -1,0 +1,83 @@
+"""Orthonormal fast transforms diagonalizing lattice Gram matrices
+(counterpart of the lattice part of ``fastgaussianprocesses_tpu/ops/transforms.py``).
+
+* ``pfft_stable`` / ``pifft_ortho_real`` -- the permuted-spectrum FFT of
+  ``ops/perm_fft`` (kernels K1-K3 on the card), float32, n = 2^14..2^22.
+* ``rfft_stable_*`` / ``irfft_*`` -- the Hermitian half spectrum over
+  ``torch.fft``, for float64 and for n below 2^14.
+
+The stabilized wrappers subtract the mean before transforming and add
+``mean * sqrt(n)`` back into the DC bin, avoiding cancellation for
+near-constant inputs.
+"""
+
+import functools
+import math
+
+import torch
+
+from .bitops import bit_reverse_permutation, log2_int
+from .perm_fft import pfft, pifft_real
+
+
+def _stabilize(transform, x):
+    n = x.shape[-1]
+    xmean = x.mean(-1, keepdim=True)
+    y = transform(x - xmean)
+    y[..., 0] += (xmean[..., 0] * math.sqrt(n)).to(y.dtype)
+    return y
+
+
+@functools.lru_cache(maxsize=8)
+def bitrev_index(n: int, device: torch.device) -> torch.Tensor:
+    """The bit-reversal permutation of length n as an index tensor on ``device``
+    (cached: at n = 2^20 it is 8 MB)."""
+    return torch.as_tensor(bit_reverse_permutation(log2_int(n)), device=device)
+
+
+def pfft_stable(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred orthonormal FFT in the permuted spectrum order
+    (``perm_fft.spectrum_perm``; DC stays at index 0).  Input already in
+    bit-reversed point order."""
+    n = x.shape[-1]
+    return _stabilize(lambda v: pfft(v, n).mul_(1.0 / math.sqrt(n)), x)
+
+
+def pifft_ortho_real(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Real part of the orthonormal inverse of :func:`pfft_stable`'s transform;
+    output in bit-reversed point order.  Query paths only."""
+    return pifft_real(z, n).mul_(math.sqrt(n))
+
+
+def rfft_stable_plain(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred orthonormal rfft of pre-permuted REAL input (n//2 + 1
+    bins of the Hermitian spectrum)."""
+    n = x.shape[-1]
+    if n == 1:
+        return x.to(torch.complex128 if x.dtype == torch.float64 else torch.complex64)
+    return _stabilize(lambda v: torch.fft.rfft(v).mul_(1.0 / math.sqrt(n)), x)
+
+
+def rfft_stable_lattice(x: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum transform of natural-order input (bit reversal folded in;
+    mean-centring commutes with the permutation)."""
+    n = x.shape[-1]
+    if n == 1:
+        return rfft_stable_plain(x)
+    return rfft_stable_plain(x.index_select(-1, bitrev_index(n, x.device)))
+
+
+def irfft_plain(x_half: torch.Tensor, n: int) -> torch.Tensor:
+    """Real-space inverse of the orthonormal half-spectrum transform, output
+    left in bit-reversed order."""
+    if n == 1:
+        return x_half.real
+    return torch.fft.irfft(x_half, n).mul_(math.sqrt(n))
+
+
+def irfft_br(x_half: torch.Tensor, n: int) -> torch.Tensor:
+    """Real-space inverse of the orthonormal half-spectrum transform, output
+    in natural order."""
+    if n == 1:
+        return x_half.real
+    return irfft_plain(x_half, n).index_select(-1, bitrev_index(n, x_half.device))
