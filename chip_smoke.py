@@ -6,8 +6,8 @@ NVIDIA GPU, written for an H100.  Run from the repository root:
 
 Phases; any failure raises and the exit code is not 0:
 
-1. The card's name and power limit; build ``csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a`` (one compiler process per source, started together).
+1. The card's name and power limit; build ``csrc/perm_fft.cu`` with
+   ``nvcc`` for ``sm_90a``.
 2. The slice: ``FastGPLattice(d=8, seed_for_seq=7, alpha=2)`` in float32 on
    the card, n = 2^20 points, hyperparameters from a seed loaded through
    ``load_jax_params``; requests: 3 x ``post_mean_var`` on 4096 points, then
@@ -21,7 +21,9 @@ Phases; any failure raises and the exit code is not 0:
    with R = 1 and R = 59 rows) and at n = 2^14, plus the public ops against
    float64 numpy.  Times of the kernel, the plain version and one library
    yardstick (``torch.fft``) on the same inputs, each a CUDA graph of
-   repeated calls replayed between CUDA events, beside the kernel's bound.
+   repeated calls replayed between CUDA events, beside the bound: the least
+   time for the function's work (its inputs read and outputs written once,
+   or the FLOPs of the best FFT algorithm, whichever takes longer).
 4. Cross-check at n = 2^16, d = 8: the card's float32 permuted-spectrum path
    against the CPU's float32 plain-kernel path and the CPU's float64
    half-spectrum path.
@@ -101,20 +103,19 @@ def torch_complex_or_double(*ts):
 
 
 def passb_flops(n, R):
-    """FLOPs of K1/K2 as the kernel does them: two twiddle products, one
-    inner twiddle and log2(B) radix-2 stages (a complex product is 6 FLOP, a
-    butterfly 10 FLOP for 2 elements)."""
+    """Least FLOPs of pass B (K1/K2), whatever the kernel does: the twiddle
+    w_n^{k1 b} (a complex product, 6 FLOP a point) and a radix-2 FFT of
+    length B = n / A per (row, k1) (5 B log2 B FLOP)."""
     from fastgaussianprocesses_torch.ops.perm_fft import _plan
     A, Bh, Bl, _ = _plan(n)
-    return R * n * (3 * 6 + 5 * math.log2(Bh * Bl))
+    return R * n * (6 + 5 * math.log2(Bh * Bl))
 
 
 def quad_flops(n, R):
-    """FLOPs of K3: in-kernel pass A as a direct length-A DFT of real input
-    (2 FMA per input and k1), pass B as in K1, and w|Z|^2 accumulation."""
-    from fastgaussianprocesses_torch.ops.perm_fft import _plan
-    A = _plan(n)[0]
-    return R * n * 4 * A + passb_flops(n, R) + R * n * 5
+    """Least FLOPs of ``sum_b w_b |FFT(x)_b|^2`` (K3) over real rows of
+    length n, whatever the kernel does: a real-input FFT (2.5 n log2 n FLOP)
+    and, per conjugate bin pair, |Z|^2 times the summed weights (~6 FLOP)."""
+    return R * n * (2.5 * math.log2(n) + 3)
 
 
 def bound(nbytes, flops):
@@ -124,14 +125,6 @@ def bound(nbytes, flops):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def table_bytes(tp, n, inverse, with_fa):
-    """Bytes of the DFT/twiddle tables a kernel reads (inputs too)."""
-    import torch
-    t = tp._dev_tables(n, inverse, torch.device("cuda"))
-    keys = ["T1", "T2", "T3"] + (["FA"] if with_fa else [])
-    return nbytes(*[x for k in keys for x in t[k]], t["twh"], t["twl"])
 
 
 def phase_kernels(torch, tp):
@@ -193,20 +186,20 @@ def phase_kernels(torch, tp):
                    # library: the whole pfft (DFT + gather to the permuted order)
                    gtime(lambda: torch.fft.fft(x).index_select(-1, perm), it_k),
                    gtime(lambda: tp.pfft(x, n), it_k),
-                   nbytes(Yr, Yi, kr, ki) + table_bytes(tp, n, False, False),
+                   nbytes(Yr, Yi, kr, ki),
                    passb_flops(n, R)),
             "K2": (gtime(lambda: tp.passb_inv(pr, pi, n), it_k),
                    gtime(lambda: tp.passb_inv_plain(pr, pi, n), it_p),
                    gtime(lambda: torch.fft.ifft(torch.complex(pr, pi).index_select(
                        -1, inv_perm)).real, it_k),
                    gtime(lambda: tp.pifft_real(torch.complex(pr, pi), n), it_k),
-                   nbytes(pr, pi, jr, ji) + table_bytes(tp, n, True, False),
+                   nbytes(pr, pi, jr, ji),
                    passb_flops(n, R)),
             "K3": (gtime(lambda: tp.quad_partials(xm, wk, n), it_k),
                    gtime(lambda: tp.quad_plain(xm, wk, n), it_p),
                    gtime(lambda: (w_nat * torch.fft.fft(xm).abs().square()).sum(-1), it_k),
                    gtime(lambda: tp.pfft_quad(x, w_perm, n), it_k),
-                   nbytes(xm, wk, q) + table_bytes(tp, n, False, True),
+                   nbytes(xm, wk, q),
                    quad_flops(n, R)),
         }
         for k, (ms, pms, lms, oms, nb, fl) in t.items():
@@ -346,12 +339,15 @@ def phase_crosscheck(torch, ft):
         res[label] = [t.double().cpu() for t in
                       (pm, pv, gp.coeffs, gp.post_cubature_mean(), gp.post_cubature_var())]
         log(f"  {label}: solver {type(gp._solver()).__name__}")
-    # f32 vs f64 at this conditioning (measured on the CPU: pm 2.7e-5,
-    # pv 6.4e-5, coeffs 4.2e-4, cubature mean 6.5e-6, cubature var 2.6e-4)
-    tol = (2e-4, 5e-4, 4e-3, 5e-5, 2e-3)
+    # card f32 against CPU f32 runs the same arithmetic but for the kernels'
+    # summation order (measured on the H100: at most 6.4e-6); f32 against
+    # f64 at this conditioning (measured on the CPU: pm 2.7e-5, pv 6.4e-5,
+    # coeffs 4.2e-4, cubature mean 6.5e-6, cubature var 2.6e-4)
+    tols = {"cpu f32 perm (plain kernels)": (5e-5,) * 5,
+            "cpu f64 half spectrum": (2e-4, 5e-4, 4e-3, 5e-5, 2e-3)}
     names = ("post_mean", "post_var", "coeffs", "cubature mean", "cubature var")
     card = res["card f32 perm"]
-    for ref in ("cpu f32 perm (plain kernels)", "cpu f64 half spectrum"):
+    for ref, tol in tols.items():
         errs = [rel_err(a, b)[0] for a, b in zip(card, res[ref])]
         log(f"  card vs {ref}: " + ", ".join(
             f"{nm} {e:.2e} (tol {t:.0e})" for nm, e, t in zip(names, errs, tol)))
@@ -365,19 +361,14 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import fastgaussianprocesses_torch as ft
-    from fastgaussianprocesses_torch.ops import cuda_lib
-    from fastgaussianprocesses_torch.ops import perm_fft as tp
+    from fastgaussianprocesses_torch.ops import cuda_lib, perm_fft as tp
 
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log("phase 1: build")
     t0 = time.perf_counter()
-    cuda_lib.build_all()
-    log(f"  nvcc build of {sorted(cuda_lib.SIGNATURES)}: {time.perf_counter() - t0:.1f} s")
-    for name, info in cuda_lib.build_log.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    cuda_lib.build()
+    log(f"  nvcc build of {cuda_lib.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
     counts = phase_serving(torch, ft, tp)
     log("phase 3: kernels against their plain versions")

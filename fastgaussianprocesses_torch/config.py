@@ -39,9 +39,11 @@ def default_dtype(device: torch.device) -> torch.dtype:
 
 
 def debug_checks_enabled() -> bool:
-    """Mirror of the JAX package's dense-oracle flag (``FASTGPS_TPU_DEBUG``).
+    """Mirror of the JAX package's dense-oracle flag (``FASTGPS_TPU_DEBUG``),
+    read from ``FASTGPS_TORCH_DEBUG``.
 
-    When set, the fast single-task solvers step aside for the general
-    solver, as in the JAX package; the port does not have that solver yet.
+    In the JAX package it makes the fast single-task solvers step aside for
+    the general solver.  The port does not have that solver yet, so a model
+    refuses to be built while the flag is set rather than ignore it.
     """
     return os.environ.get("FASTGPS_TORCH_DEBUG", "") in ("1", "True", "true")

@@ -11,7 +11,7 @@ in a Python loop.  The fit loop, ``post_cov``, ``post_ci`` and
 import numpy as np
 import torch
 
-from ..config import default_dtype, resolve_device
+from ..config import debug_checks_enabled, default_dtype, resolve_device
 from .params import IDENTITY, LOG_EXP, make_param
 
 
@@ -47,11 +47,6 @@ class AbstractGP:
                  tfs_noise=LOG_EXP,
                  tfs_factor_task_kernel=IDENTITY,
                  tfs_noise_task_kernel=LOG_EXP,
-                 requires_grad_scale=True,
-                 requires_grad_lengthscales=True,
-                 requires_grad_noise=False,
-                 requires_grad_factor_task_kernel=None,
-                 requires_grad_noise_task_kernel=None,
                  shape_batch=(),
                  shape_scale=(1,),
                  shape_lengthscales=None,
@@ -60,9 +55,12 @@ class AbstractGP:
                  shape_noise_task_kernel=None,
                  derivatives=None,
                  derivatives_coeffs=None,
-                 adaptive_nugget=False,
                  dtype=None,
                  device=None):
+        if debug_checks_enabled():
+            raise NotImplementedError(
+                "FASTGPS_TORCH_DEBUG selects the dense debug oracle, which the port "
+                "gains with its multitask slice (ROADMAP queue 1 item 7); unset it")
         if num_tasks is None:
             self.solo_task = True
             self.default_task = 0
@@ -116,39 +114,27 @@ class AbstractGP:
             shape_factor_task_kernel = (num_tasks, rank_factor_task_kernel)
         if shape_noise_task_kernel is None:
             shape_noise_task_kernel = (num_tasks,)
-        if requires_grad_factor_task_kernel is None:
-            requires_grad_factor_task_kernel = num_tasks > 1
-        if requires_grad_noise_task_kernel is None:
-            requires_grad_noise_task_kernel = num_tasks > 1
         sb, dt, dev = self.shape_batch, self.dtype, self.device
         self.params = {
-            "scale": make_param("scale", scale, shape_scale, tfs_scale,
-                                requires_grad_scale, sb, 1, dt, dev),
+            "scale": make_param("scale", scale, shape_scale, tfs_scale, sb, 1, dt, dev),
             "lengthscales": make_param("lengthscales", lengthscales, shape_lengthscales,
-                                       tfs_lengthscales, requires_grad_lengthscales, sb, 1,
-                                       dt, dev),
-            "noise": make_param("noise", noise, shape_noise, tfs_noise,
-                                requires_grad_noise, sb, 1, dt, dev),
+                                       tfs_lengthscales, sb, 1, dt, dev),
+            "noise": make_param("noise", noise, shape_noise, tfs_noise, sb, 1, dt, dev),
             "factor_task_kernel": make_param("factor_task_kernel", factor_task_kernel,
                                              shape_factor_task_kernel, tfs_factor_task_kernel,
-                                             requires_grad_factor_task_kernel, sb, 2, dt, dev,
-                                             positive=False),
+                                             sb, 2, dt, dev, positive=False),
             "noise_task_kernel": make_param("noise_task_kernel", noise_task_kernel,
                                             shape_noise_task_kernel, tfs_noise_task_kernel,
-                                            requires_grad_noise_task_kernel, sb, 1, dt, dev,
-                                            positive=True, allow_nonneg=True),
+                                            sb, 1, dt, dev, positive=True, allow_nonneg=True),
         }
         if self.params["scale"].raw.shape[-1] != 1 or self.params["noise"].raw.shape[-1] != 1:
             raise ValueError("scale and noise need a trailing dimension of 1")
         if self.params["lengthscales"].raw.shape[-1] not in (1, self.d):
             raise ValueError("lengthscales need a trailing dimension of 1 or d")
         if self._has_derivatives:
-            for k in ("factor_task_kernel", "noise_task_kernel"):
-                self.params[k] = self.params[k]._replace(trainable=False)
             if not torch.allclose(self.gram_matrix_tasks.cpu(),
                                   torch.ones((), dtype=self.dtype)):
                 raise ValueError("derivative mode requires an all-ones task Gram")
-        self.adaptive_nugget = bool(adaptive_nugget)
         self._y = [torch.zeros(self.shape_batch + (0,), dtype=dt, device=dev)
                    for _ in range(num_tasks)]
         self._x_cache = [None] * num_tasks   # numpy float points
@@ -206,10 +192,6 @@ class AbstractGP:
     @property
     def total_parameters(self):
         return sum(p.raw.numel() for p in self.params.values())
-
-    @property
-    def total_tuneable_parameters(self):
-        return sum(p.raw.numel() for p in self.params.values() if p.trainable)
 
     @property
     def m(self):

@@ -19,7 +19,6 @@ import os
 import numpy as np
 import torch
 
-from ..config import debug_checks_enabled
 from ..kernels import series
 from ..linalg import fast_solver as fs
 from ..ops import perm_fft
@@ -149,9 +148,8 @@ def make_solver(model, raw, n):
     if model._use_half_spectrum(n):
         return _HalfSpectrumSolver(model, raw, n)
     raise NotImplementedError(
-        "this model needs the general multitask fast solver (multitask, n < 2, "
-        "or the dense debug oracle), which the port gains with its multitask "
-        "slice (ROADMAP queue 1 item 7)")
+        "this model needs the general multitask fast solver (multitask or n < 2), "
+        "which the port gains with its multitask slice (ROADMAP queue 1 item 7)")
 
 
 class AbstractFastGP(AbstractGP):
@@ -210,26 +208,22 @@ class AbstractFastGP(AbstractGP):
     # -- half-spectrum (rfft) and permuted-spectrum paths ---------------
     def _use_half_spectrum(self, n) -> bool:
         """rfft single-task solver: a model with the half-transform hooks, one
-        task, n >= 2, and the dense debug oracle off."""
+        task, n >= 2."""
         if self._ft_lam_half is None or self.num_tasks != 1:
             return False
-        if int(np.asarray(n)[0]) < 2:
-            return False
-        return not debug_checks_enabled()
+        return int(np.asarray(n)[0]) >= 2
 
     def _use_perm_spectrum(self, n) -> bool:
         """Permuted-spectrum solver (kernels K1-K3): CUDA float32, one task, a
-        supported n, debug oracle off.  ``FASTGPS_TORCH_FORCE_PERM=1`` takes it
-        on the CPU too (in float32), where the plain kernel versions run."""
+        supported n.  ``FASTGPS_TORCH_FORCE_PERM=1`` takes it on the CPU too
+        (in float32), where the plain kernel versions run."""
         if self._ft_lam_perm is None or self.num_tasks != 1:
             return False
         if not perm_fft.supported(int(np.asarray(n)[0])):
             return False
         if self.dtype != torch.float32:
             return False
-        if self.device.type != "cuda" and os.environ.get("FASTGPS_TORCH_FORCE_PERM") != "1":
-            return False
-        return not debug_checks_enabled()
+        return self.device.type == "cuda" or os.environ.get("FASTGPS_TORCH_FORCE_PERM") == "1"
 
     def _get_ytilde_half(self, task, n):
         """rfft of the observations (the half-spectrum solver's ytilde)."""

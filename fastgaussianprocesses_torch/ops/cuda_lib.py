@@ -1,12 +1,11 @@
-"""Build the package's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build ``csrc/perm_fft.cu`` with ``nvcc`` and load it with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
-``nvcc`` takes seconds, not minutes) and is compiled for ``sm_90a`` into
-``_build/<name>-<hash>.so`` inside the package directory, the hash covering
-the source and the flags.  The build happens at first use, never at import;
-:func:`build_all` starts one ``nvcc`` per source, all at once.  Every entry
-point returns a CUDA error code and every library exports
-``fgp_error_string``; :func:`check` raises on a non-zero code.
+The source exposes a plain C interface (no PyTorch headers, so ``nvcc``
+takes seconds, not minutes) and is compiled for ``sm_90a`` into
+``_build/perm_fft-<hash>.so`` inside the package directory, the hash
+covering the source and the flags.  The build happens at first use, never
+at import.  Every entry point returns a CUDA error code; :func:`check`
+raises on a non-zero one.
 """
 
 import ctypes
@@ -14,29 +13,23 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
+SOURCE = _PKG / "csrc" / "perm_fft.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each C entry point: every pointer and the stream as c_void_p
-SIGNATURES = {
-    "perm_fft": {
-        "fgp_passb": [_P] * 12 + [_I] * 5 + [_P],
-        "fgp_quad": [_P] * 13 + [_I] * 4 + [_P],
-    },
+_SIGNATURES = {
+    "fgp_passb": [_P] * 12 + [_I] * 5 + [_P],
+    "fgp_quad": [_P] * 13 + [_I] * 4 + [_P],
 }
 
-_lock = threading.Lock()
-_libs = {}
-build_log = {}   # name -> {"seconds": float, "ptxas": str} for builds run in this process
+_lib = None
 
 
 def _nvcc() -> str:
@@ -49,52 +42,34 @@ def _nvcc() -> str:
                        "and need the CUDA toolkit (set CUDA_HOME)")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{tag}.so"
-
-
-def build_all(names=None) -> dict:
-    """Compile every missing library (one ``nvcc`` per source, run together);
-    return ``{name: path}``.  Raises with the compiler output on failure."""
-    names = list(SIGNATURES) if names is None else list(names)
-    BUILD_DIR.mkdir(exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
+def build() -> Path:
+    """Compile the library if it is missing; return its path.  Raises with
+    the compiler output on failure."""
+    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"perm_fft-{tag}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
+            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
-        build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: _target(name) for name in names}
+    return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if needed), with argtypes set."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.fgp_error_string.argtypes = [ctypes.c_int]
-            lib.fgp_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return lib
+def load() -> ctypes.CDLL:
+    """The loaded library (built first if needed), with argtypes set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.fgp_error_string.argtypes = [ctypes.c_int]
+        lib.fgp_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -27,12 +27,13 @@ runs its plain version for CPU tensors, and raises for anything else):
   writes k1-major so the inverse pass A (with 1/n) is a plain matmul.
 * **K3** :func:`quad_partials` <- ``pallas_fft._quad_kernel`` (``pfft_quad``):
   pass A, pass B and ``sum w |Z|^2`` fused; the spectrum never reaches device
-  memory.  Pass A runs inside the kernel as a direct length-A DFT per k1
-  (4*A*n FLOP a row, ~4 us at n = 2^20, A = 64), which bounds it more than
-  the single 4 MB read of the row (~1.3 us): the A blocks of a row re-read
-  it from L2.  The kernel writes one partial sum per (row, k1), reduced in
-  a fixed order; ``torch.sum`` over k1 follows, so the result is
-  deterministic (no atomics).
+  memory.  The function is bound on the H100 by the single 4 MB read of an
+  n = 2^20 row (~1.3 us; a real FFT of the row is ~2.5*n*log2(n) FLOP,
+  ~0.8 us).  This kernel does more work than that: pass A runs inside it
+  as a direct length-A DFT per k1 (4*A*n FLOP a row, ~4 us at A = 64), and
+  the A blocks of a row re-read it from L2.  It writes one partial sum per
+  (row, k1), reduced in a fixed order; ``torch.sum`` over k1 follows, so
+  the result is deterministic (no atomics).
 
 Inputs are float32; pass A and its inverse are ``torch.matmul`` on float32
 planes at full precision (TF32 is off, see ``config``), as the JAX package
@@ -240,7 +241,7 @@ def _passb_cuda(inr, ini, n: int, inverse: bool):
     _check(ini, shape, "passb input (im)")
     if ini.device != inr.device:
         raise ValueError("passb: planes on different devices")
-    lib = cuda_lib.load("perm_fft")
+    lib = cuda_lib.load()
     t = _dev_tables(n, inverse, inr.device)
     outr, outi = torch.empty_like(inr), torch.empty_like(ini)
     with torch.cuda.device(inr.device):
@@ -280,7 +281,7 @@ def quad_partials(xm, wk, n: int):
     _check(wk, (Bh, A, Bl), "quad weights")
     if xm.data_ptr() % 16:
         raise ValueError("quad rows must be 16-byte aligned (float4 loads)")
-    lib = cuda_lib.load("perm_fft")
+    lib = cuda_lib.load()
     t = _dev_tables(n, False, xm.device)
     partial = torch.empty((R, A), dtype=torch.float32, device=xm.device)
     with torch.cuda.device(xm.device):

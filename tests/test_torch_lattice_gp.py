@@ -151,6 +151,16 @@ def test_no_silent_cpu_fallback_and_unported_solver_raises(monkeypatch):
         gp.post_mean(np.zeros((2, 2)))
 
 
+def test_debug_flag_refuses_to_build_a_model(monkeypatch):
+    """The dense debug oracle is not ported: the flag that selects it stops
+    model construction instead of being ignored."""
+    monkeypatch.setenv("FASTGPS_TORCH_DEBUG", "1")
+    with pytest.raises(NotImplementedError, match="FASTGPS_TORCH_DEBUG"):
+        ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
+    monkeypatch.setenv("FASTGPS_TORCH_DEBUG", "0")
+    ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
