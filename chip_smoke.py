@@ -6,16 +6,20 @@ NVIDIA GPU, written for an H100.  Run from the repository root:
 
 Phases; any failure raises and the exit code is not 0:
 
-1. The card's name and power limit; build ``csrc/perm_fft.cu`` with
-   ``nvcc`` for ``sm_90a``.
-2. The slice: ``FastGPLattice(d=8, seed_for_seq=7, alpha=2)`` in float32 on
+1. The card's name and power limit; build ``csrc/perm_fft.cu`` and
+   ``csrc/fwht.cu`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
+   started together).
+2. The slices: ``FastGPLattice(d=8, seed_for_seq=7, alpha=2)``, then
+   ``FastGPDigitalNetB2(d=8, seed_for_seq=7, alpha=2)``, each in float32 on
    the card, n = 2^20 points, hyperparameters from a seed loaded through
    ``load_jax_params``; requests: 3 x ``post_mean_var`` on 4096 points, then
    ``post_mean``, ``post_var``, ``post_cubature_mean``, ``post_cubature_var``.
-   Kernel launch counters are zeroed just before and read just after; every
-   kernel must have launched.  It runs first, so that its first request
-   pays what a fresh serving process pays.  One more ``post_mean_var`` runs
-   under ``torch.profiler`` for the device-time split.
+   Kernel launch counters are zeroed just before each model's run and read
+   just after; every kernel of its path must have launched (K1-K3 for the
+   lattice, K4 for the digital net).  They run first, so that the lattice's
+   first request pays what a fresh serving process pays.  One more
+   ``post_mean_var`` of each runs under ``torch.profiler`` for the
+   device-time split.
 3. Kernels K1-K3 (``ops/perm_fft``): each CUDA kernel against its plain
    PyTorch version on the same inputs, at the main path's shapes (n = 2^20
    with R = 1 and R = 59 rows) and at n = 2^14, plus the public ops against
@@ -24,9 +28,14 @@ Phases; any failure raises and the exit code is not 0:
    repeated calls replayed between CUDA events, beside the bound: the least
    time for the function's work (its inputs read and outputs written once,
    or the FLOPs of the best FFT algorithm, whichever takes longer).
-4. Cross-check at n = 2^16, d = 8: the card's float32 permuted-spectrum path
-   against the CPU's float32 plain-kernel path and the CPU's float64
-   half-spectrum path.
+   Kernel K4 (``ops/fwht``) the same way at n = 2^14, R = 3 and at the
+   shapes of the digital-net path (n = 2^20 with R = 1 and the query chunk,
+   R = 119; n = 2^22, R = 1), and against float64 and float32 numpy
+   butterfly networks; no PyTorch call computes a Walsh-Hadamard
+   transform, so K4 has no library yardstick.
+4. Cross-checks at n = 2^16, d = 8: the card's float32 paths against the
+   CPU's float32 plain-kernel paths and the CPU's float64 paths (lattice:
+   half spectrum; digital net: the general solver).
 5. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -50,6 +59,7 @@ N_MAIN = 1 << 20
 D = 8
 N_QUERY = 4096
 TOL_KERNEL = 3e-6         # max relative error against the plain version, f32
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def log(*a):
@@ -227,13 +237,16 @@ def _raw_params(seed=7):
             "noise_task_kernel": np.zeros(1)}
 
 
-def phase_serving(torch, ft, tp):
-    """Phase 2: the n = 2^20, d = 8 serving path on the card."""
+def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours):
+    """Phase 2: the n = 2^20, d = 8 serving path of one model on the card.
+    ``path_kernels``: the launch counters its run must move; ``ours``: the
+    substrings of their CUDA kernel names in the profile."""
     sync = torch.cuda.synchronize
     xq = torch.as_tensor(np.random.default_rng(11).uniform(size=(N_QUERY, D)), device="cuda")
-    tp.reset_launches()
+    for c in counters:
+        c.reset_launches()
     t0 = time.perf_counter()
-    gp = ft.FastGPLattice(D, seed_for_seq=7, alpha=2)
+    gp = cls(D, seed_for_seq=7, alpha=2)
     x = gp.get_x_next(N_MAIN)
     y = torch.sin(2 * math.pi * x[:, 0]) * torch.cos(2 * math.pi * x[:, 1]) + x.sum(1)
     gp.add_y_next(y)
@@ -242,7 +255,7 @@ def phase_serving(torch, ft, tp):
     lat = {"setup (points, data, params)": time.perf_counter() - t0}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gp._warm_for_query(gp.n)           # k1parts, ytilde (one K1 launch)
+    gp._warm_for_query(gp.n)           # k1parts, ytilde
     sync()
     lat["cache warm-up (k1parts, ytilde)"] = time.perf_counter() - t0
     out = {}
@@ -259,15 +272,16 @@ def phase_serving(torch, ft, tp):
         out[name] = call()
         sync()
         lat[name] = time.perf_counter() - t0
-    counts = dict(tp.launches)
+    counts = {k: v for c in counters for k, v in c.launches.items()}
     for k, v in lat.items():
         log(f"  {k}: {v * 1e3:.1f} ms")
     log(f"  peak device memory allocated during the requests: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; query chunk "
+        f"{gp._query_chunk_size(N_QUERY, N_MAIN)} rows")
     log(f"  kernel launches on the main path: {counts}")
-    if type(gp._solver()).__name__ != "_PermSpectrumSolver" or gp.dtype != torch.float32:
-        raise AssertionError("the card model did not take the float32 permuted-spectrum path")
-    if not all(v > 0 for v in counts.values()):
+    if type(gp._solver()).__name__ != solver or gp.dtype != torch.float32:
+        raise AssertionError(f"the card model did not take the float32 {solver} path")
+    if not all(counts[k] > 0 for k in path_kernels):
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
 
     pm, pv = out["post_mean_var#0"]
@@ -284,8 +298,8 @@ def phase_serving(torch, ft, tp):
     e_mean = rel_err(out["post_mean"], pm)[0]
     e_var = rel_err(out["post_var"], pv)[0]
     cm, cv = float(out["post_cubature_mean"]), float(out["post_cubature_var"])
-    # reference: the same model in float64 on the CPU (half-spectrum solver)
-    ref = ft.FastGPLattice(D, seed_for_seq=7, alpha=2, dtype=torch.float64, device="cpu")
+    # reference: the same model in float64 on the CPU
+    ref = cls(D, seed_for_seq=7, alpha=2, dtype=torch.float64, device="cpu")
     xh = ref.get_x_next_host(N_MAIN)
     ref.add_y_next(torch.from_numpy(_f(xh)))
     ft.load_jax_params(ref, _raw_params())
@@ -313,46 +327,103 @@ def phase_serving(torch, ft, tp):
     evs = sorted([(t, e) for t, e in evs if t > 0], key=lambda te: -te[0])
     total = sum(t for t, _ in evs)
     if total > 0:
-        ours = sum(t for t, e in evs if "passb_kernel" in e.key or "quad_kernel" in e.key)
+        mine = sum(t for t, e in evs if any(o in e.key for o in ours))
         log(f"  profile of one post_mean_var: wall {wall * 1e3:.1f} ms, device busy "
-            f"{total / 1e3:.1f} ms ({100 * total / 1e6 / wall:.1f}%), K1-K3 "
-            f"{ours / 1e3:.2f} ms ({100 * ours / total:.1f}% of device time)")
+            f"{total / 1e3:.1f} ms ({100 * total / 1e6 / wall:.1f}%), "
+            f"{'/'.join(path_kernels)} kernels {mine / 1e3:.2f} ms "
+            f"({100 * mine / total:.1f}% of device time)")
         for t, e in evs[:10]:
             log(f"    {t / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:100]}")
     else:
         log("  profile of one post_mean_var: no device time recorded (not measured)")
-    return counts
+    return counts, gp._query_chunk_size(N_QUERY, N_MAIN)
 
 
-def phase_crosscheck(torch, ft):
-    """Phase 4: n = 2^16, d = 8 on the card against the CPU paths."""
+def phase_crosscheck(torch, ft, cls, labels, tols):
+    """Phase 4: n = 2^16, d = 8 on the card against the CPU paths.
+    ``labels``: names of the card, CPU float32 and CPU float64 runs;
+    ``tols``: per reference, limits on the max relative error of
+    (post_mean, post_var, coeffs, cubature mean, cubature var)."""
     n = 1 << 16
     xq = np.random.default_rng(5).uniform(size=(256, D))
     res = {}
-    for label, dev, dt in (("card f32 perm", "cuda", torch.float32),
-                           ("cpu f32 perm (plain kernels)", "cpu", torch.float32),
-                           ("cpu f64 half spectrum", "cpu", torch.float64)):
-        gp = ft.FastGPLattice(D, seed_for_seq=7, alpha=2, dtype=dt, device=dev)
+    for label, dev, dt in zip(labels, ("cuda", "cpu", "cpu"),
+                              (torch.float32, torch.float32, torch.float64)):
+        gp = cls(D, seed_for_seq=7, alpha=2, dtype=dt, device=dev)
         gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(n))))
         ft.load_jax_params(gp, _raw_params())
         pm, pv = gp.post_mean_var(xq)
         res[label] = [t.double().cpu() for t in
                       (pm, pv, gp.coeffs, gp.post_cubature_mean(), gp.post_cubature_var())]
         log(f"  {label}: solver {type(gp._solver()).__name__}")
-    # card f32 against CPU f32 runs the same arithmetic but for the kernels'
-    # summation order (measured on the H100: at most 6.4e-6); f32 against
-    # f64 at this conditioning (measured on the CPU: pm 2.7e-5, pv 6.4e-5,
-    # coeffs 4.2e-4, cubature mean 6.5e-6, cubature var 2.6e-4)
-    tols = {"cpu f32 perm (plain kernels)": (5e-5,) * 5,
-            "cpu f64 half spectrum": (2e-4, 5e-4, 4e-3, 5e-5, 2e-3)}
     names = ("post_mean", "post_var", "coeffs", "cubature mean", "cubature var")
-    card = res["card f32 perm"]
-    for ref, tol in tols.items():
+    card = res[labels[0]]
+    failed = []
+    for ref, tol in zip(labels[1:], tols):
         errs = [rel_err(a, b)[0] for a, b in zip(card, res[ref])]
         log(f"  card vs {ref}: " + ", ".join(
             f"{nm} {e:.2e} (tol {t:.0e})" for nm, e, t in zip(names, errs, tol)))
         if not all(e < t for e, t in zip(errs, tol)):
-            raise AssertionError(f"card path disagrees with the {ref}")
+            failed.append(ref)
+    if failed:
+        raise AssertionError(f"card path disagrees with the {', '.join(failed)}")
+
+
+def np_fwht(x):
+    """Orthonormal FWHT of the rows of a numpy array, in its own dtype: the
+    radix-2 butterfly network, stages from the lowest index bit up (the
+    order in which K4 runs them)."""
+    R, n = x.shape
+    y, h = x.copy(), 1
+    while h < n:
+        y = y.reshape(R, -1, 2, h)
+        y = np.concatenate([y[:, :, :1] + y[:, :, 1:], y[:, :, :1] - y[:, :, 1:]], 2)
+        y = y.reshape(R, n)
+        h *= 2
+    return y * x.dtype.type(1.0 / math.sqrt(n))
+
+
+def phase_fwht(torch, tf, nb):
+    """Phase 3 for K4: against its plain version, float64 numpy and the
+    float32 numpy butterflies; times and bounds.  ``nb``: the query chunk's
+    row count on the digital-net path."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    rows = {}
+    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)]:
+        m = int(math.log2(n))
+        x = torch.randn(R, n, generator=g).to(dev)
+        k = tf.fwht(x)
+        p = tf.fwht_plain(x)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(k, p)
+        # the first rows against numpy: float64 (the true values), and float32
+        # in the kernel's order of operations, which it must match bit for bit
+        r = min(R, 4)
+        x0 = x[:r].cpu().numpy()
+        k0 = k[:r].cpu().numpy()
+        want = torch.from_numpy(np_fwht(x0.astype(np.float64)))
+        e64 = rel_err(torch.from_numpy(k0), want)[0]
+        same32 = bool(np.array_equal(k0, np_fwht(x0)))
+        # the float64 instantiation on the same values
+        e_d = rel_err(tf.fwht(x[:r].double()), want)[0]
+        log(f"  K4 fwht n=2^{m} R={R:3d}: max rel err vs plain {rel:.3e} (tol {16 * EPS32:.1e}, "
+            f"16 ulps), vs float64 numpy {e64:.3e} (tol {4 * EPS32:.1e}), float32 numpy "
+            f"butterflies bitwise equal: {same32}; float64 kernel vs numpy {e_d:.1e} (tol 1e-13)")
+        if not (rel < 16 * EPS32 and e64 < 4 * EPS32 and same32 and e_d < 1e-13):
+            raise AssertionError(f"K4 disagrees with its references at n={n}, R={R}")
+        it_k, it_p = (50, 10) if R == 1 else (10, 3)
+        ms = gtime(lambda: tf.fwht(x), it_k)
+        pms = gtime(lambda: tf.fwht_plain(x), it_p)
+        nbytes_ = 2 * nbytes(x)               # read once, write once
+        flops = R * n * (m + 1)               # n log2 n adds and n scalings a row
+        bms, by = bound(nbytes_, flops)
+        log(f"  K4 n=2^{m} R={R:3d}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library none; "
+            f"bound {bms:.4f} ms by {by} ({nbytes_ / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        rows[(n, R)] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=ab)
+        del x, k, p
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -361,20 +432,38 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import fastgaussianprocesses_torch as ft
-    from fastgaussianprocesses_torch.ops import cuda_lib, perm_fft as tp
+    from fastgaussianprocesses_torch.ops import cuda_lib, fwht as tf, perm_fft as tp
 
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log("phase 1: build")
     t0 = time.perf_counter()
     cuda_lib.build()
-    log(f"  nvcc build of {cuda_lib.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
+    log(f"  nvcc build of {', '.join(s.name for s in cuda_lib.SOURCES)}: "
+        f"{time.perf_counter() - t0:.1f} s")
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
-    counts = phase_serving(torch, ft, tp)
+    counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
+                              ("passb", "passb_inv", "quad"), ("passb_kernel", "quad_kernel"))
+    log("phase 2: serving FastGPDigitalNetB2(d=8) at n=2^20 on the card")
+    counts_dn, nb = phase_serving(torch, ft, (tp, tf), ft.FastGPDigitalNetB2, "_FastSolver",
+                                  ("fwht",), ("fwht_",))
     log("phase 3: kernels against their plain versions")
     rows = phase_kernels(torch, tp)
+    rows_fwht = phase_fwht(torch, tf, nb)
     log("phase 4: cross-check at n=2^16, d=8")
-    phase_crosscheck(torch, ft)
+    # card f32 against CPU f32 runs the same arithmetic but for the kernels'
+    # summation order (measured on the H100: lattice at most 6.4e-6; digital
+    # net pm 6.5e-6, pv 1.9e-6, coeffs 2.4e-5, cubature 0); f32 against f64
+    # at this conditioning (measured on the CPU: lattice pm 2.7e-5, pv
+    # 6.4e-5, coeffs 4.2e-4, cubature mean 6.5e-6, cubature var 2.6e-4;
+    # digital net pm 1.1e-4, pv 1.4e-3, coeffs 3.3e-3, cubature mean 1.3e-6,
+    # cubature var 6.9e-3)
+    phase_crosscheck(torch, ft, ft.FastGPLattice,
+                     ("card f32 perm", "cpu f32 perm (plain kernels)", "cpu f64 half spectrum"),
+                     ((5e-5,) * 5, (2e-4, 5e-4, 4e-3, 5e-5, 2e-3)))
+    phase_crosscheck(torch, ft, ft.FastGPDigitalNetB2,
+                     ("card f32 fwht", "cpu f32 (plain fwht)", "cpu f64"),
+                     ((5e-5, 5e-5, 1e-4, 5e-5, 5e-5), (5e-4, 5e-3, 1.5e-2, 5e-6, 3e-2)))
 
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
     spec = [("K1 perm_fft.passb", "K1", 1, "passb", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
@@ -390,6 +479,14 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "op_ms": r["op_ms"], "shape": f"n=2^20, R={R}"})
+    r = rows_fwht[(N_MAIN, nb)]
+    kernels.append({"name": "K4 fwht.fwht", "route": "cuda",
+                    "source": "fastgaussianprocesses_torch/csrc/fwht.cu",
+                    "replaces": "fastgaussianprocesses_tpu/ops/pallas_fwht.py:59",
+                    "launches": counts_dn["fwht"], "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None,
+                    "shape": f"n=2^20, R={nb}"})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,22 @@
 """PyTorch/CUDA port of the fast Gaussian process package: O(n log n) GP
-regression on lattice points, with hand-written Hopper kernels for the
-permuted-spectrum FFT (``ops/perm_fft``, ``csrc/perm_fft.cu``).
+regression on lattice points and Sobol' digital nets, with hand-written
+Hopper kernels for the permuted-spectrum FFT (``ops/perm_fft``,
+``csrc/perm_fft.cu``) and the fast Walsh-Hadamard transform (``ops/fwht``,
+``csrc/fwht.cu``).
 
-This slice serves posterior queries on single-task lattice models; the JAX
-package ``fastgaussianprocesses_tpu`` is the reference it is tested against.
-Entry points run on the CUDA card unless ``device="cpu"`` is given.
+It serves posterior queries on single-task lattice and digital-net models;
+the JAX package ``fastgaussianprocesses_tpu`` is the reference it is tested
+against.  Entry points run on the CUDA card unless ``device="cpu"`` is given.
 """
 
 from . import config  # noqa: F401  (TF32 off, must come first)
 from .convert import load_jax_params
+from .models.digital_gp import FastGPDigitalNetB2
 from .models.lattice_gp import FastGPLattice
+from .points.digital_net import DigitalNetB2
 from .points.lattice import LatticeSeq
 
-__all__ = ["FastGPLattice", "LatticeSeq", "load_jax_params", "__version__"]
+__all__ = ["FastGPLattice", "FastGPDigitalNetB2", "LatticeSeq", "DigitalNetB2",
+           "load_jax_params", "__version__"]
 
 __version__ = "0.1.0"

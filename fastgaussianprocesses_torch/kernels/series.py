@@ -1,10 +1,11 @@
-"""Series-form shift-invariant (lattice) kernels (counterpart of the
-shift-invariant half of ``fastgaussianprocesses_tpu/kernels/series.py``).
+"""Series-form kernels: shift-invariant (lattice) and digitally-shift-invariant
+(digital net) (counterpart of ``fastgaussianprocesses_tpu/kernels/series.py``).
 
 Two pieces, as in the JAX package:
 
-* ``si_parts_from_delta`` / ``kernel_parts`` -- hyperparameter-independent
-  per-dimension series terms, cached per point set;
+* ``si_parts_from_delta`` / ``dsi_parts_from_delta`` / ``kernel_parts`` --
+  hyperparameter-independent per-dimension series terms, cached per point
+  set;
 * ``kernel_from_parts_t`` -- the cheap hyperparameter contraction
   ``scale * prod_j(ind_j + lengthscale_j * part_j)``.
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.bernoulli import bernoulli_poly
+from ..ops.walsh_closed import omega_walsh_closed, omega_walsh_closed_pair
 
 
 def _si_coeff(alpha_j: int, b: int, k: int) -> float:
@@ -61,6 +63,58 @@ def si_part_dim(delta_j, alpha_j: int, b: int, k: int):
 def lattice_ominus(x, z):
     """Group difference on the torus: ``(x - z) mod 1``."""
     return (x - z).remainder_(1.0)
+
+
+def _dsi_order(alpha_j: int, bpk: int) -> int:
+    order = alpha_j - bpk
+    if not 1 <= order <= 4:
+        raise ValueError(f"DSI order must be in [1, 4], got {order}")
+    return order
+
+
+def dsi_parts_from_delta(delta_b, t: int, alpha, beta, kappa, dtype=torch.float64):
+    """Per-dimension DSI series terms at t-bit integer XOR differences.
+
+    ``(-2)^(beta_j + kappa_j) * (ind_j + omega_{alpha_j - beta_j - kappa_j}(delta_j))``
+    with ``ind_j = 1{beta_j + kappa_j > 0}``.
+
+    Args:
+        delta_b: (..., d) integer XOR differences.
+        t: bit precision.
+        alpha, beta, kappa: int vectors of length d.
+
+    Returns:
+        (..., d) tensor of series terms in ``dtype``.
+    """
+    alpha = np.asarray(alpha, dtype=np.int64)
+    bpk = np.asarray(beta, dtype=np.int64) + np.asarray(kappa, dtype=np.int64)
+    cols = [dsi_part_dim(delta_b[..., j], t, int(alpha[j]), int(bpk[j]), 0, dtype=dtype)
+            for j in range(delta_b.shape[-1])]
+    return torch.stack(cols, dim=-1)
+
+
+def _dsi_term(om, bpk: int):
+    """``(-2)^bpk * (1{bpk > 0} + omega)``, in place on the fresh ``om``."""
+    return om.add_(1.0 if bpk > 0 else 0.0).mul_(float((-2.0) ** bpk))
+
+
+def dsi_part_dim(delta_bj, t: int, alpha_j: int, b: int, k: int, dtype=torch.float64):
+    """One dimension's DSI series term (scalar orders; see dsi_parts_from_delta).
+    Returns a fresh buffer (callers may update it in place)."""
+    om = omega_walsh_closed(delta_bj, t, _dsi_order(alpha_j, b + k), dtype=dtype)
+    return _dsi_term(om, b + k)
+
+
+def dsi_part_pair(xbj, zbj, t: int, alpha_j: int, b: int, k: int, dtype=torch.float64):
+    """:func:`dsi_part_dim` at ``xbj XOR zbj`` for broadcastable sides, with the
+    bit-spread features computed side-wise (``omega_walsh_closed_pair``)."""
+    om = omega_walsh_closed_pair(xbj, zbj, t, _dsi_order(alpha_j, b + k), dtype=dtype)
+    return _dsi_term(om, b + k)
+
+
+def digital_ominus(xb, zb):
+    """Group difference in base 2: bitwise XOR of t-bit integers."""
+    return xb ^ zb
 
 
 def kernel_parts(parts_fn, x_or_b, z_or_b, ominus, beta0, beta1):
@@ -112,7 +166,7 @@ def kernel_from_parts_t(parts_t, beta0, beta1, c0, c1, scale, lengthscales):
 
 
 def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
-                      scale, lengthscales, alpha):
+                      scale, lengthscales, alpha, part_dim_pair_fn=None):
     """Kernel values without the ``(..., d)`` parts tensor: a loop over
     dimension groups accumulating the product in one running buffer.
 
@@ -125,7 +179,10 @@ def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
     results agree to roundoff.
 
     ``part_dim_fn(delta_j, j, b, k)`` may depend on ``j`` only through
-    ``alpha[j]``.
+    ``alpha[j]``.  ``part_dim_pair_fn(xj, zj, j, b, k)``, where given, takes
+    its place and is evaluated on the broadcastable sides instead of the
+    delta, so that a model can compute per-side features once (the digital
+    net's XOR-commuting bit spreads).  Both return a fresh buffer.
     """
     d = x_or_b.shape[-1]
     alpha = np.broadcast_to(np.asarray(alpha, dtype=np.int64), (d,))
@@ -147,9 +204,12 @@ def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
             for (_, b, k), idx in groups.items():
                 ind = 1.0 if (b + k) == 0 else 0.0
                 for j in idx:
-                    delta = ominus(x_or_b[..., j], z_or_b[..., j])
-                    part = part_dim_fn(delta, idx[0], b, k)
-                    del delta
+                    if part_dim_pair_fn is not None:
+                        part = part_dim_pair_fn(x_or_b[..., j], z_or_b[..., j], idx[0], b, k)
+                    else:
+                        delta = ominus(x_or_b[..., j], z_or_b[..., j])
+                        part = part_dim_fn(delta, idx[0], b, k)
+                        del delta
                     lsj = ls[..., j].reshape(batch + (1,) * sp_ndim)
                     term = part.mul_(lsj) if not batch else part * lsj
                     prod.mul_(term.add_(ind))

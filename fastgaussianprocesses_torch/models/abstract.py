@@ -359,14 +359,14 @@ class AbstractGP:
 
     def get_xb_q(self, l: int, n: int):
         """Training columns for queries, in the model's query column order
-        (cached on the device: at n = 2^20, d = 8 one copy is 32 MB)."""
-        perm = self._train_col_perm(l, int(n))
-        if perm is None:
-            return self.get_xb(l, n=n)
+        (cached on the device: at n = 2^20, d = 8 one copy is 32 MB, and each
+        query chunk reads it)."""
         key = (l, int(n))
         cached = self._xbq_cache.get(key)
         if cached is None:
-            cached = self._to_device(np.asarray(self._get_xxb(l, int(n))[1])[np.asarray(perm)])
+            xb = np.asarray(self._get_xxb(l, int(n))[1])
+            perm = self._train_col_perm(l, int(n))
+            cached = self._to_device(xb if perm is None else xb[np.asarray(perm)])
             self._xbq_cache[key] = cached
             while len(self._xbq_cache) > 4:
                 self._xbq_cache.pop(next(iter(self._xbq_cache)))

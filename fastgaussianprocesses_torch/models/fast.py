@@ -1,17 +1,19 @@
-"""Fast GP engine for lattice models, serving half (counterpart of
-``fastgaussianprocesses_tpu/models/fast.py``).
+"""Fast GP engine shared by the lattice (FFT) and digital-net (FWHT) models,
+serving half (counterpart of ``fastgaussianprocesses_tpu/models/fast.py``).
 
 Everything on the training side runs in frequency ("tilde") space in
 O(n log n): eigenvalues are transforms of first Gram columns and posterior
-cubature reads the zero-frequency bin.  Two single-task solvers are ported:
+cubature reads the zero-frequency bin.  Three single-task solvers are ported:
 
-* ``_PermSpectrumSolver`` -- full spectrum in the permuted bin order of
-  ``ops/perm_fft`` (kernels K1-K3), chosen on the CUDA card in float32 for
+* ``_PermSpectrumSolver`` -- lattice, full spectrum in the permuted bin order
+  of ``ops/perm_fft`` (kernels K1-K3), chosen on the CUDA card in float32 for
   n = 2^14..2^22;
-* ``_HalfSpectrumSolver`` -- the Hermitian half spectrum over ``torch.fft``,
-  for float64 and small n.
+* ``_HalfSpectrumSolver`` -- lattice, the Hermitian half spectrum over
+  ``torch.fft``, for float64 and small n;
+* ``_FastSolver`` -- the general solver over the model's ``_ft`` / ``_ift``
+  (the digital net's FWHT, kernel K4 on the card).
 
-The general multitask solver comes with the multitask slice.
+The multitask half of the general solver comes with the multitask slice.
 """
 
 import os
@@ -22,26 +24,73 @@ import torch
 from ..kernels import series
 from ..linalg import fast_solver as fs
 from ..ops import perm_fft
-from .abstract import AbstractGP, _as_task_array
+from ..ops import transforms as tr
+from ..ops.bitops import log2_int
+from .abstract import AbstractGP, _as_task_array, _cat
 
 
 def _eigenvalues(model, raw, n0, k1p, ft):
-    """Effective single-task eigenvalues ``(sqrt(n) lam + noise) * K_tasks[0,0]``
-    plus the floor ``8 * eps * max|lam|`` (kept exactly as the JAX package
-    has it: the floor is part of the solver's contract)."""
+    """Effective single-task eigenvalues (``fs.effective_lams`` of the
+    transformed first column)."""
     params = model._transformed(raw)
     kmat_tasks = model._task_gram(raw)
     scale, ls, noise = params["scale"], params["lengthscales"], params["noise"]
     k1 = series.kernel_from_parts_t(
         k1p, model.derivatives[0], model.derivatives[0],
         model.derivatives_coeffs[0], model.derivatives_coeffs[0], scale, ls)
-    lam = ft(k1)
-    rdt = lam.abs().dtype
-    lam = torch.sqrt(torch.tensor(float(n0), dtype=rdt, device=lam.device)) * lam
-    lam = lam + noise           # single task: the adaptive-nugget trace ratio is 1
-    lam = lam * kmat_tasks[..., 0, 0][..., None]
-    floor = 8.0 * torch.finfo(rdt).eps * lam.abs().amax(-1, keepdim=True)
-    return lam + floor, kmat_tasks, scale
+    lam = fs.effective_lams({(0, 0): ft(k1)}, (n0,), kmat_tasks, noise)[(0, 0)]
+    return lam, kmat_tasks, scale
+
+
+class _FastSolver:
+    """Frequency-space solver handle for one (params, n) instance over the
+    model's ``_ft`` / ``_ift`` hooks, serving half, one task.
+
+    The eigenvalues are recomputed from the cached series parts for every
+    handle, as in the JAX package (one transform of the first column).
+    """
+
+    def __init__(self, model, raw, n):
+        fs.require_single_task(model.num_tasks)
+        self.model = model
+        self.n = np.asarray(n, dtype=np.int64)
+        if not (self.n > 0).all():
+            raise ValueError("all tasks need data (or a future n) for fast solves")
+        self.task_order, self.inv_task_order = fs.sort_tasks(self.n)
+        self.n_sorted = tuple(int(self.n[o]) for o in self.task_order)
+        n0 = self.n_sorted[0]
+        lam, self.kmat_tasks, self.scale = _eigenvalues(
+            model, raw, n0, model._get_k1parts_lam(0, 0, n0), model._ft_lam)
+        self.factor = fs.factorize({(0, 0): lam}, self.n_sorted, self.task_order,
+                                   self.inv_task_order)
+
+    def _split(self, ycat):
+        offs = np.concatenate([[0], np.cumsum(self.n)])
+        return [ycat[..., offs[l]:offs[l + 1]] for l in range(len(self.n))]
+
+    # ``pre_permuted`` is part of the solver protocol; no model served by this
+    # solver reorders its query columns (``_train_col_perm`` is None), so the
+    # transforms ignore it
+    def gram_matrix_solve(self, ycat, extra_ndim=0, pre_permuted=False):
+        """Real-space solve ``K^-1 y`` along the last axis."""
+        yst = [self.model._ft(y) for y in self._split(ycat)]
+        zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
+        return _cat([torch.real(self.model._ift(z)) for z in zst], -1)
+
+    def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
+        """Diagonal of ``Y K^-1 Y^T`` for stacked rows ``ycat``, in tilde space:
+        the transforms are unitary, so ``y^T K^-1 y = <y~, z~>`` (Parseval)."""
+        yst = [self.model._ft(y) for y in self._split(ycat)]
+        zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
+        return sum(torch.real(a.conj() * b).sum(-1) for a, b in zip(yst, zst))
+
+    def coeffs(self):
+        yts = [self.model._get_ytilde(l, int(self.n[l])) for l in range(self.model.num_tasks)]
+        zts = fs.solve_tilde(self.factor, yts)
+        return _cat([torch.real(self.model._ift(z)) for z in zts], -1)
+
+    def dc_block(self):
+        return fs.dc_block(self.factor)
 
 
 class _HalfSpectrumSolver:
@@ -142,14 +191,13 @@ class _PermSpectrumSolver:
 
 
 def make_solver(model, raw, n):
-    """Solver factory: permuted-spectrum kernels, then half spectrum."""
+    """Solver factory: permuted-spectrum kernels, then half spectrum, then the
+    general solver."""
     if model._use_perm_spectrum(n):
         return _PermSpectrumSolver(model, raw, n)
     if model._use_half_spectrum(n):
         return _HalfSpectrumSolver(model, raw, n)
-    raise NotImplementedError(
-        "this model needs the general multitask fast solver (multitask or n < 2), "
-        "which the port gains with its multitask slice (ROADMAP queue 1 item 7)")
+    return _FastSolver(model, raw, n)
 
 
 class AbstractFastGP(AbstractGP):
@@ -163,11 +211,28 @@ class AbstractFastGP(AbstractGP):
         if self.alpha.shape != (self.d,):
             raise ValueError(f"alpha needs {self.d} entries")
         self._k1parts_cache = {}         # (l0, l1) -> (n, p0, p1, d) device tensor
+        self._k1parts_lam_cache = {}     # (l0, l1, n) -> (p0, p1, d, n) solver layout
         self._solver_cache = {}          # (version, n-tuple) -> solver
+        self._ytilde_cache = {}          # (task, n) -> _ft ytilde (general solver)
         self._ytilde_half_cache = {}     # (task, n) -> rfft ytilde
         self._ytilde_perm_cache = {}     # (task, n) -> perm-spectrum ytilde
 
     # -- concrete-model hooks -------------------------------------------
+    def _ft(self, x):
+        """The general solver's orthonormal transform of the last axis."""
+        raise NotImplementedError(
+            f"{type(self).__name__}: the full-spectrum transform `_ft` is not ported yet "
+            "(ROADMAP queue 1 item 6)")
+
+    def _ift(self, x):
+        raise NotImplementedError(
+            f"{type(self).__name__}: the full-spectrum transform `_ift` is not ported yet "
+            "(ROADMAP queue 1 item 6)")
+
+    def get_omega(self, m):
+        """Twiddles of the radix-2 doubling merge from 2^m to 2^(m+1) points."""
+        raise NotImplementedError
+
     def _ominus(self, a, b):
         raise NotImplementedError
 
@@ -183,8 +248,24 @@ class AbstractFastGP(AbstractGP):
     def _ftout_dtype(self):
         raise NotImplementedError
 
+    # models may provide a side-wise pair evaluator (see kernel_fused_scan)
+    _part_dim_pair = None
+
     def _get_k1parts_lam(self, l0, l1, n):
-        raise NotImplementedError
+        """First-column parts in the (p0, p1, d, n) layout the solver's
+        contraction reads (point axis last), cached per (l0, l1, n)."""
+        key = (l0, l1, int(n))
+        cached = self._k1parts_lam_cache.get(key)
+        if cached is None:
+            cached = torch.movedim(self._get_k1parts(l0, l1, n), 0, -1).contiguous()
+            self._k1parts_lam_cache[key] = cached
+            if len(self._k1parts_lam_cache) > 24:
+                self._k1parts_lam_cache.pop(next(iter(self._k1parts_lam_cache)))
+        return cached
+
+    def _ft_lam(self, k1):
+        """Transform of first columns inside the general solver."""
+        return self._ft(k1)
 
     _ft_lam_half = None  # lattice overrides with the rfft hooks
     _ft_lam_perm = None  # lattice overrides with the permuted-FFT hooks
@@ -225,6 +306,25 @@ class AbstractFastGP(AbstractGP):
             return False
         return self.device.type == "cuda" or os.environ.get("FASTGPS_TORCH_FORCE_PERM") == "1"
 
+    def _get_ytilde(self, task, n):
+        """``_ft`` of the observations (the general solver's ytilde).
+
+        Incremental doubling: when ``ft(y[:n/2])`` is cached, ``ft(y[:n])`` is
+        the one-level radix-2 merge of it with ``ft(y[n/2:n])`` -- a half-size
+        transform and an O(n) merge instead of a full-size transform."""
+        key = (task, n)
+        if key not in self._ytilde_cache:
+            y = self._y[task]
+            prev = self._ytilde_cache.get((task, n // 2))
+            if n > 1 and prev is not None:
+                half = y[..., n // 2:n]
+                half_t = self._ft(half) if n // 2 > 1 else half.to(self._ftout_dtype())
+                yt = tr.merge_doubling(prev, half_t, self.get_omega(log2_int(n // 2)))
+            else:
+                yt = self._ft(y[..., :n]) if n > 1 else y[..., :n].to(self._ftout_dtype())
+            self._ytilde_cache[key] = yt
+        return self._ytilde_cache[key]
+
     def _get_ytilde_half(self, task, n):
         """rfft of the observations (the half-spectrum solver's ytilde)."""
         key = (task, n)
@@ -241,7 +341,7 @@ class AbstractFastGP(AbstractGP):
 
     def _on_data_change(self):
         # y only grows by appending, so ytilde entries for prefix sizes stay valid
-        for cache in (self._ytilde_half_cache, self._ytilde_perm_cache):
+        for cache in (self._ytilde_cache, self._ytilde_half_cache, self._ytilde_perm_cache):
             for (task, n) in list(cache):
                 if n > self._y[task].shape[-1]:
                     del cache[(task, n)]
@@ -274,6 +374,9 @@ class AbstractFastGP(AbstractGP):
             self._get_ytilde_perm(0, int(self.n[0]))
         elif self._use_half_spectrum(self.n):
             self._get_ytilde_half(0, int(self.n[0]))
+        else:
+            fs.require_single_task(self.num_tasks)
+            self._get_ytilde(0, int(self.n[0]))
 
     def _warm_extra(self, n):
         # future-n queries need first-column caches at the projected sizes
@@ -301,7 +404,8 @@ class AbstractFastGP(AbstractGP):
         return n
 
     def _query_itemsize(self):
-        # lattice queries move complex FFT buffers (2x real)
+        # the transform's output type: complex FFT buffers (2x real) for the
+        # lattice, real FWHT buffers for the digital net
         return torch.empty((), dtype=self._ftout_dtype()).element_size()
 
     # -- kernel evaluation ----------------------------------------------
@@ -309,7 +413,7 @@ class AbstractFastGP(AbstractGP):
         # live buffers are O(N * n) whatever d is: never (N, n, d)
         return series.kernel_fused_scan(self._part_dim, x0, x1, self._ominus,
                                         beta0, beta1, c0, c1, scale, lengthscales,
-                                        self.alpha)
+                                        self.alpha, part_dim_pair_fn=self._part_dim_pair)
 
     # -- fast cubature ---------------------------------------------------
     def post_cubature_mean(self, task=None):

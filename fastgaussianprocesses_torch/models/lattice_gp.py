@@ -53,7 +53,6 @@ class FastGPLattice(AbstractFastGP):
         if not ((1 <= a) & (2 * a <= MAX_ORDER)).all():
             raise ValueError("alpha must be in [1, 4]")
         super().__init__(alpha, seqs, num_tasks=num_tasks, noise=noise, **kwargs)
-        self._k1parts_br_cache = {}
 
     def _ftout_dtype(self):
         return torch.complex128 if self.dtype == torch.float64 else torch.complex64
@@ -71,13 +70,13 @@ class FastGPLattice(AbstractFastGP):
         """Bit-reverse-permuted first-column parts in the (p0, p1, d, n) layout,
         so the solver's transform of the first column needs no gather."""
         key = (l0, l1, int(n))
-        cached = self._k1parts_br_cache.get(key)
+        cached = self._k1parts_lam_cache.get(key)
         if cached is None:
             parts = torch.movedim(self._get_k1parts(l0, l1, n), 0, -1)
             cached = parts.index_select(-1, tr.bitrev_index(int(n), self.device)).contiguous()
-            self._k1parts_br_cache[key] = cached
-            if len(self._k1parts_br_cache) > 24:
-                self._k1parts_br_cache.pop(next(iter(self._k1parts_br_cache)))
+            self._k1parts_lam_cache[key] = cached
+            if len(self._k1parts_lam_cache) > 24:
+                self._k1parts_lam_cache.pop(next(iter(self._k1parts_lam_cache)))
         return cached
 
     # half-spectrum (rfft) hooks: k1 and y are real, so the single-task

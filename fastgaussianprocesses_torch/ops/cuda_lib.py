@@ -1,10 +1,11 @@
-"""Build ``csrc/perm_fft.cu`` with ``nvcc`` and load it with ``ctypes``.
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ``ctypes``.
 
-The source exposes a plain C interface (no PyTorch headers, so ``nvcc``
-takes seconds, not minutes) and is compiled for ``sm_90a`` into
-``_build/perm_fft-<hash>.so`` inside the package directory, the hash
-covering the source and the flags.  The build happens at first use, never
-at import.  Every entry point returns a CUDA error code; :func:`check`
+The sources expose a plain C interface (no PyTorch headers, so ``nvcc``
+takes seconds, not minutes) and are compiled for ``sm_90a``: one ``nvcc``
+per source, all started together, then one link into
+``_build/fgp_kernels-<hash>.so`` inside the package directory, the hash
+covering every source and the flags.  The build happens at first use,
+never at import.  Every entry point returns a CUDA error code; :func:`check`
 raises on a non-zero one.
 """
 
@@ -16,10 +17,10 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "perm_fft.cu"
+SOURCES = (_PKG / "csrc" / "perm_fft.cu", _PKG / "csrc" / "fwht.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,6 +28,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fgp_passb": [_P] * 12 + [_I] * 5 + [_P],
     "fgp_quad": [_P] * 13 + [_I] * 4 + [_P],
+    "fgp_fwht": [_P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lib = None
@@ -42,18 +44,34 @@ def _nvcc() -> str:
                        "and need the CUDA toolkit (set CUDA_HOME)")
 
 
+def _run_all(cmds, what):
+    """Run the commands side by side; raise with the compiler output of the
+    first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for name, p, out in zip(what, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+
+
 def build() -> Path:
-    """Compile the library if it is missing; return its path.  Raises with
-    the compiler output on failure."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"perm_fft-{tag}.so"
+    """Compile and link the library if it is missing; return its path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + src.read_bytes())
+    out = BUILD_DIR / f"fgp_kernels-{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(SOURCES, objs)], [s.name for s in SOURCES])
+        tmp = out.with_suffix(f".{tag}")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]],
+                 ["the link"])
+        for o in objs:
+            o.unlink()
         os.replace(tmp, out)
     return out
 

@@ -1,10 +1,12 @@
-"""Orthonormal fast transforms diagonalizing lattice Gram matrices
-(counterpart of the lattice part of ``fastgaussianprocesses_tpu/ops/transforms.py``).
+"""Orthonormal fast transforms diagonalizing lattice and digital-net Gram
+matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
 
 * ``pfft_stable`` / ``pifft_ortho_real`` -- the permuted-spectrum FFT of
   ``ops/perm_fft`` (kernels K1-K3 on the card), float32, n = 2^14..2^22.
 * ``rfft_stable_*`` / ``irfft_*`` -- the Hermitian half spectrum over
   ``torch.fft``, for float64 and for n below 2^14.
+* ``ft_stable_fwht`` -- the orthonormal FWHT of ``ops/fwht`` (kernel K4 on
+  the card), self-inverse; ``merge_doubling`` grows a transform from n to 2n.
 
 The stabilized wrappers subtract the mean before transforming and add
 ``mean * sqrt(n)`` back into the DC bin, avoiding cancellation for
@@ -17,6 +19,7 @@ import math
 import torch
 
 from .bitops import bit_reverse_permutation, log2_int
+from .fwht import fwht
 from .perm_fft import pfft, pifft_real
 
 
@@ -81,3 +84,16 @@ def irfft_br(x_half: torch.Tensor, n: int) -> torch.Tensor:
     if n == 1:
         return x_half.real
     return irfft_plain(x_half, n).index_select(-1, bitrev_index(n, x_half.device))
+
+
+def ft_stable_fwht(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred orthonormal FWHT (self-inverse), kernel K4 on the card."""
+    return _stabilize(fwht, x)
+
+
+def merge_doubling(prev: torch.Tensor, new_half_t: torch.Tensor, omega) -> torch.Tensor:
+    """One radix-2 merge: from ``prev = ft(v[:n])`` and ``new_half_t =
+    ft(v[n:2n])`` the transform ``ft(v[:2n]) = [prev + w new, prev - w new] /
+    sqrt(2)``, with ``w`` the lattice twiddles, or 1 for the FWHT."""
+    wn = new_half_t * omega
+    return torch.cat([prev + wn, prev - wn], -1) * (1.0 / math.sqrt(2.0))
