@@ -23,11 +23,15 @@ Phases; any failure raises and the exit code is not 0:
 3. Kernels K1-K3 (``ops/perm_fft``): each CUDA kernel against its plain
    PyTorch version on the same inputs, at the main path's shapes (n = 2^20
    with R = 1 and R = 59 rows) and at n = 2^14, plus the public ops against
-   float64 numpy.  Times of the kernel, the plain version and one library
+   float64 numpy.  K3 (two launches a call: pass A, then the half-spectrum
+   slabs) also at n = 2^15, 2^17, 2^20 with the last query chunk's R = 25,
+   and 2^22.  Times of the kernel, the plain version and one library
    yardstick (``torch.fft``) on the same inputs, each a CUDA graph of
    repeated calls replayed between CUDA events, beside the bound: the least
    time for the function's work (its inputs read and outputs written once,
-   or the FLOPs of the best FFT algorithm, whichever takes longer).
+   or the FLOPs of the best FFT algorithm, whichever takes longer).  For K3
+   a second yardstick is logged: ``torch.fft.rfft`` with the weights of
+   each conjugate pair summed, the strongest single-call form.
    Kernel K4 (``ops/fwht``) the same way at n = 2^14, R = 3 and at the
    shapes of the digital-net path (n = 2^20 with R = 1 and the query chunk,
    R = 119; n = 2^22, R = 1), and against float64 and float32 numpy
@@ -147,7 +151,8 @@ def phase_kernels(torch, tp):
         Yr = torch.randn(R, n, generator=g).to(dev)
         Yi = torch.randn(R, n, generator=g).to(dev)
         x = torch.randn(R, n, generator=g).to(dev) + 2.0
-        xm = (x - x.mean(-1, keepdim=True)).contiguous()
+        mx = x.mean(-1)
+        xm = (x - mx[:, None]).contiguous()
         wk = (torch.rand(Bh, A, Bl, generator=g) + 0.1).to(dev)
         perm = torch.as_tensor(tp.spectrum_perm(n), device=dev)
         inv_perm = torch.argsort(perm)
@@ -161,8 +166,22 @@ def phase_kernels(torch, tp):
         jr, ji = tp.passb_inv(pr, pi, n)
         qr, qi = tp.passb_inv_plain(pr, pi, n)
         e2 = rel_err(torch.complex(jr, ji), torch.complex(qr, qi).reshape(R, n))
-        q = tp.quad_partials(xm, wk, n)
+        q = tp.quad_partials(x, wk, n, mx)
         e3 = rel_err(q.sum(-1), tp.quad_plain(xm, wk, n).sum(-1))
+        if n == N_MAIN and R == 59:
+            # the last query chunk's rows and the plans the main path does not run
+            for n3, R3 in [(1 << 15, 2), (1 << 17, 3), (N_MAIN, 25), (1 << 22, 1)]:
+                A3, Bh3, Bl3, _ = tp._plan(n3)
+                x3 = torch.randn(R3, n3, generator=g).to(dev) + 2.0
+                m3 = x3.mean(-1)
+                wk3 = (torch.rand(Bh3, A3, Bl3, generator=g) + 0.1).to(dev)
+                rel3 = rel_err(tp.quad_partials(x3, wk3, n3, m3).sum(-1),
+                               tp.quad_plain(x3 - m3[:, None], wk3, n3).sum(-1))[0]
+                log(f"  K3 quad       n=2^{int(math.log2(n3))} R={R3:2d}: max rel err vs plain "
+                    f"{rel3:.3e} (tol {TOL_KERNEL:.0e})")
+                if not rel3 < TOL_KERNEL:
+                    raise AssertionError(f"K3 disagrees with its plain version at n={n3}, R={R3}")
+            del x3, wk3
         torch.cuda.synchronize()
         for name, (rel, ab) in (("K1 passb", e1), ("K2 passb_inv", e2), ("K3 quad", e3)):
             log(f"  {name:13s} n=2^{int(math.log2(n))} R={R:2d}: max rel err vs plain "
@@ -190,6 +209,14 @@ def phase_kernels(torch, tp):
             raise AssertionError(f"public op disagrees with float64 numpy at n={n}")
 
         it_k, it_p = (50, 10) if R == 1 else (10, 3)
+        # second K3 yardstick: the real-input FFT, each conjugate pair's weights summed
+        w_r = w_nat[:n // 2 + 1].clone()
+        w_r[1:n // 2] += w_nat.flip(0)[:n // 2 - 1]
+        e_r = rel_err((w_r * torch.fft.rfft(xm).abs().square()).sum(-1),
+                      tp.quad_plain(xm, wk, n).sum(-1))[0]
+        log(f"  K3 n=2^{int(math.log2(n))} R={R:2d}: rfft + folded weights "
+            f"{gtime(lambda: (w_r * torch.fft.rfft(xm).abs().square()).sum(-1), it_k):.4f} ms "
+            f"(rel err vs plain {e_r:.1e})")
         t = {
             "K1": (gtime(lambda: tp.passb(Yr, Yi, n), it_k),
                    gtime(lambda: tp.passb_plain(Yr, Yi, n), it_p),
@@ -205,7 +232,7 @@ def phase_kernels(torch, tp):
                    gtime(lambda: tp.pifft_real(torch.complex(pr, pi), n), it_k),
                    nbytes(pr, pi, jr, ji),
                    passb_flops(n, R)),
-            "K3": (gtime(lambda: tp.quad_partials(xm, wk, n), it_k),
+            "K3": (gtime(lambda: tp.quad_partials(x, wk, n, mx), it_k),
                    gtime(lambda: tp.quad_plain(xm, wk, n), it_p),
                    gtime(lambda: (w_nat * torch.fft.fft(xm).abs().square()).sum(-1), it_k),
                    gtime(lambda: tp.pfft_quad(x, w_perm, n), it_k),
@@ -443,7 +470,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
     counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
-                              ("passb", "passb_inv", "quad"), ("passb_kernel", "quad_kernel"))
+                              ("passb", "passb_inv", "quad"), ("passb_kernel", "quad_"))
     log("phase 2: serving FastGPDigitalNetB2(d=8) at n=2^20 on the card")
     counts_dn, nb = phase_serving(torch, ft, (tp, tf), ft.FastGPDigitalNetB2, "_FastSolver",
                                   ("fwht",), ("fwht_",))

@@ -3,7 +3,8 @@
 // Counterparts of the Pallas TPU kernels in fastgaussianprocesses_tpu/ops/pallas_fft.py:
 //   fgp_passb (inverse = 0)  <- _passb_kernel      (K1, pass B of pfft)
 //   fgp_passb (inverse = 1)  <- _passb_inv_kernel  (K2, pass B of pifft, run backwards)
-//   fgp_quad                 <- _quad_kernel       (K3, fused pass A + pass B + w|Z|^2)
+//   fgp_quad                 <- _quad_kernel       (K3, pass A + pass B + w|Z|^2, two launches:
+//                               quad_pass_a_kernel, then quad_slab_kernel)
 //
 // Factorization (same tables and bin order as the JAX package):
 //   n = A * B,  B = Bh * Bl,   j = a*B + bh*Bl + bl,   k = k1 + A*kh + A*Bh*kl
@@ -30,11 +31,38 @@
 // (R, A, B), so the inverse pass A is a plain matmul.  The spectrum layout (R, Bh, A, Bl)
 // is the JAX package's, bin for bin.
 //
-// K3 computes pass A inside the block: for its k1 it reads the whole mean-centred row
-// (n floats, 4 MB at n = 2^20) and forms Y[k1, :] as a direct length-A DFT.  The grid is
-// r-major (blockIdx.x = k1), so the A blocks of one row run together and re-read the row
-// from L2, not from device memory.  The per-block weighted sum is reduced in a fixed
-// order and written to partial[r, k1]: no atomics, deterministic.
+// K3 replaces pallas_fft.py:419 (_quad_kernel) behind pfft_quad (pallas_fft.py:515):
+// per mean-centred real row, sum_k w_k |X_k|^2 with the spectrum X never stored whole
+// (pass A subtracts the row mean as it loads the row, so the caller writes no centred
+// copy; the exact DC term stays outside, as in the JAX package).
+// The TPU kernel held the whole row in VMEM; the function's bound on the H100 is the
+// single read of the row, 0.0751 ms at n = 2^20, R = 59 (247.5 MB at 3.35 TB/s).  A
+// block's 227 KB of shared memory cannot hold a 4 MB row, so K3 runs in two phases with
+// the half spectrum as a bounded intermediate, on its own split n = A * B (A = 256,
+// B = 2^12 at n = 2^20; _quad_plan in ops/perm_fft.py), bins k = k1 + A*k2:
+//   quad_pass_a_kernel : pass A as a length-A FFT (A = A1 * A2, radix-2 butterflies in
+//                        registers, one exchange through shared memory) on tiles of
+//                        W = 4096 / A columns; the row is read once, and only the slabs
+//                        k1 = 0..A/2 are written (complex, (R, A/2+1, B)): for real input
+//                        slab A-k1 is the conjugate mirror of slab k1.
+//   quad_slab_kernel   : per (row, k1 <= A/2) block, tw 1 (w_n^{k1 b}) on the load, then
+//                        the length-B DFT of the slab as Stockham radix-16 passes (one
+//                        radix 2/4/8 pass first where log2 B is not a multiple of 4): 16
+//                        values a thread in registers, 2 exchanges through shared memory
+//                        at B = 2^12 (padded one slot in 16 against bank conflicts), then
+//                        sum_k2 w'[k1, k2] |Z[k2]|^2 straight from registers.  w' is the
+//                        folded weight w_k + w_{n-k} (1 <= k1 < A/2) or w_k (the
+//                        self-mirrored slabs 0 and A/2), gathered by the wrapper in
+//                        natural k2 order so the read is coalesced.  A 32 KB slab leaves
+//                        room for four blocks an SM, so one block's loads overlap
+//                        another's butterflies.
+// At n = 2^20, R = 59 the two phases move the row once (247.5 MB) and the half spectrum
+// twice (2 x 249.4 MB): 0.75 GB, 0.223 ms at 3.35 TB/s, ~3x the fused bound; the FFT
+// FLOPs (~5 n log2 n / 2 a row) are far below the byte time.  The first design ran pass
+// A inside a slab block of _plan's 2^14 values as a direct length-64 DFT: every row
+// crossed L2 64 times (15.8 GB a launch), it cost 4*A*n FLOP a row, and a 128 KB slab
+// allowed one block an SM: 2.21 ms, behind torch.fft's 2.08 ms.  Each block writes one
+// partial sum per (row, k1), reduced in a fixed order: no atomics, deterministic.
 //
 // Every entry point returns cudaGetLastError() (or the first failing CUDA call); the
 // Python wrapper raises when it is not 0.
@@ -191,68 +219,274 @@ passb_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-quad_kernel(const float* __restrict__ xm, const float* __restrict__ fa_r,
-            const float* __restrict__ fa_i, Tables t, const float* __restrict__ wk,
-            float* __restrict__ partial, int A, int log_bh, int log_bl) {
-  extern __shared__ float2 smem[];
-  const int Bh = 1 << log_bh, Bl = 1 << log_bl, B = Bh * Bl;
-  float2* slab = smem;
-  float2* sh_twh = slab + B;
-  float2* sh_twl = sh_twh + max(Bh >> 1, 1);
-  float2* sh_fa = sh_twl + max(Bl >> 1, 1);
-  float* sh_red = reinterpret_cast<float*>(sh_fa + A);
-  const int k1 = blockIdx.x;
-  const int r = blockIdx.y;
-  load_twiddles(t, sh_twh, sh_twl, log_bh, log_bl);
-  for (int a = threadIdx.x; a < A; a += blockDim.x)
-    sh_fa[a] = make_float2(fa_r[k1 * A + a], fa_i[k1 * A + a]);
-  __syncthreads();
+// ---- K3 -------------------------------------------------------------------------------
 
-  // pass A for this k1 (real input): Y[b] = sum_a F_A[k1, a] * x[a, b], 4 columns a thread
-  const int B4 = B >> 2;
-  const float4* x4 = reinterpret_cast<const float4*>(xm + static_cast<size_t>(r) * A * B);
-  for (int q = threadIdx.x; q < B4; q += blockDim.x) {
-    float4 yr = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 yi = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int a = 0; a < A; ++a) {
-      const float4 v = __ldg(x4 + static_cast<size_t>(a) * B4 + q);
-      const float2 f = sh_fa[a];
-      yr.x = fmaf(f.x, v.x, yr.x); yi.x = fmaf(f.y, v.x, yi.x);
-      yr.y = fmaf(f.x, v.y, yr.y); yi.y = fmaf(f.y, v.y, yi.y);
-      yr.z = fmaf(f.x, v.z, yr.z); yi.z = fmaf(f.y, v.z, yi.z);
-      yr.w = fmaf(f.x, v.w, yr.w); yi.w = fmaf(f.y, v.w, yi.w);
-    }
-    const float re[4] = {yr.x, yr.y, yr.z, yr.w};
-    const float im[4] = {yi.x, yi.y, yi.z, yi.w};
+// w_L^x = exp(-2 pi i x / L) for L <= 16 and 0 <= x < L/2, as compile-time constants
+template <int L>
+__device__ __forceinline__ float2 wconst(int x) {
+  const int j = x * (16 / L);
+  const float c0 = 1.f, c1 = 0.923879532511286756f, c2 = 0.707106781186547524f,
+              c3 = 0.382683432365089772f;
+  const float c = j == 0 ? c0 : j == 1 ? c1 : j == 2 ? c2 : j == 3 ? c3 : j == 4 ? 0.f
+                : j == 5 ? -c3 : j == 6 ? -c2 : -c1;
+  const float s = j == 0 ? 0.f : j == 1 ? c3 : j == 2 ? c2 : j == 3 ? c1 : j == 4 ? c0
+                : j == 5 ? c1 : j == 6 ? c2 : c3;
+  return make_float2(c, -s);
+}
+
+template <int L>
+__host__ __device__ constexpr int brev_c(int i) {
+  int r = 0;
+  for (int b = 1; b < L; b <<= 1) {
+    r = (r << 1) | (i & 1);
+    i >>= 1;
+  }
+  return r;
+}
+
+// One radix-2 decimation-in-frequency stage of span Hh on L registers, then the rest.
+template <int L, int Hh>
+struct DifStages {
+  static __device__ __forceinline__ void run(float2 (&v)[L]) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int b = 4 * q + c;
-      const int bh = b >> log_bl, bl = b & (Bl - 1);
-      slab[(bitrev(bh, log_bh) << log_bl) + bl] =
-          twiddle1(t, k1, bh, bl, log_bh, log_bl, make_float2(re[c], im[c]));
+    for (int s = 0; s < L; s += 2 * Hh) {
+#pragma unroll
+      for (int j = 0; j < Hh; ++j) {
+        const float2 u = v[s + j], w = v[s + j + Hh];
+        v[s + j] = make_float2(u.x + w.x, u.y + w.y);
+        const float2 d = make_float2(u.x - w.x, u.y - w.y);
+        v[s + j + Hh] = j == 0 ? d : cmul(d, wconst<2 * Hh>(j));
+      }
     }
+    DifStages<L, Hh / 2>::run(v);
+  }
+};
+
+template <int L>
+struct DifStages<L, 0> {
+  static __device__ __forceinline__ void run(float2 (&)[L]) {}
+};
+
+// In-register length-L DFT (L = 2, 4, 8, 16): natural order in, v[brev_c<L>(k)] = X[k] out.
+template <int L>
+__device__ __forceinline__ void dft_reg(float2 (&v)[L]) {
+  DifStages<L, L / 2>::run(v);
+}
+
+constexpr int kPassAThreads = 256;
+constexpr int kPassATile = 4096;   // complex values a block holds: A rows x W columns
+
+// Phase 1: pass A of real rows as an FFT, A = A1 * A2, a = A2*a1 + a2, k1 = p + A1*q:
+//   U[a2, p]      = sum_a1 x[a, b] w_A1^{a1 p}          (registers)
+//   Y[p + A1 q, b] = sum_a2 U[a2, p] w_A^{a2 p} w_A2^{a2 q}  (after one exchange)
+// for the W = 4096/A columns b0.. of row blockIdx.y, x = xr - mean[r]; only k1 <= A/2
+// is written, to y (R, A/2+1, B) complex.  twa[j] = w_A^j.
+template <int A, int A1>
+__global__ void __launch_bounds__(kPassAThreads)
+quad_pass_a_kernel(const float* __restrict__ xr, const float* __restrict__ mean,
+                   const float2* __restrict__ twa, float2* __restrict__ y, int log_b) {
+  constexpr int A2 = A / A1, W = kPassATile / A, H = A / 2 + 1;
+  __shared__ float2 u[kPassATile];   // u[(a2 * A1 + p) * W + c]
+  __shared__ float2 sh_tw[A];
+  const int b0 = blockIdx.x * W;
+  const size_t r = blockIdx.y;
+  for (int i = threadIdx.x; i < A; i += blockDim.x) sh_tw[i] = twa[i];
+  __syncthreads();
+  const float* x = xr + (r * A << log_b) + b0;
+  const float m = mean[r];
+  for (int t = threadIdx.x; t < A2 * W; t += blockDim.x) {
+    const int c = t % W, a2 = t / W;
+    float2 v[A1];
+#pragma unroll
+    for (int a1 = 0; a1 < A1; ++a1)
+      v[a1] = make_float2(__ldg(x + (static_cast<size_t>(A2 * a1 + a2) << log_b) + c) - m, 0.f);
+    dft_reg<A1>(v);
+#pragma unroll
+    for (int p = 0; p < A1; ++p)
+      u[(a2 * A1 + p) * W + c] = cmul(v[brev_c<A1>(p)], sh_tw[a2 * p]);
   }
   __syncthreads();
-  forward_stages(t, slab, sh_twh, sh_twl, log_bh, log_bl);
-
-  // sum_{kh, kl} w[kh, k1, kl] * |O[kh, kl]|^2 in a fixed order
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    const int kh = i >> log_bl, kl = i & (Bl - 1);
-    const float2 z = slab[(kh << log_bl) + bitrev(kl, log_bl)];
-    acc = fmaf(__ldg(wk + (static_cast<size_t>(kh) * A + k1) * Bl + kl), z.x * z.x + z.y * z.y, acc);
+  float2* yr = y + (r * H << log_b) + b0;
+  for (int t = threadIdx.x; t < A1 * W; t += blockDim.x) {
+    const int c = t % W, p = t / W;
+    float2 v[A2];
+#pragma unroll
+    for (int a2 = 0; a2 < A2; ++a2) v[a2] = u[(a2 * A1 + p) * W + c];
+    dft_reg<A2>(v);
+#pragma unroll
+    for (int q = 0; q < A2; ++q) {
+      const int k = p + A1 * q;
+      if (k <= A / 2) yr[(static_cast<size_t>(k) << log_b) + c] = v[brev_c<A2>(q)];
+    }
   }
+}
+
+constexpr int kQuadLogBl = 7, kQuadBl = 1 << kQuadLogBl;   // tw tables split b = bh*128 + bl
+
+// slab index in shared memory, one pad slot every 16 (strided radix-16 stores would
+// otherwise hit one bank)
+__host__ __device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
+
+// Phase 2, first Stockham pass (stride Ns = 1), in two steps so that the slab's loads
+// from device memory overlap the staging of the tables: load_first_pass reads radix-R
+// groups v[i][q] = Y[j + q*N/R] (j = threadIdx.x + i*blockDim.x, 16/R groups a thread);
+// first_pass applies tw 1 (w_n^{k1 b} = t1[b / 128] * t2[b mod 128]), the radix-R DFT,
+// and stores into shared memory.
+template <int R>
+__device__ __forceinline__ void load_first_pass(const float2* __restrict__ yk,
+                                                float2 (&v)[16 / R][R], int log_b) {
+  const int NR = (1 << log_b) / R;
+#pragma unroll
+  for (int i = 0; i < 16 / R; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (j < NR) v[i][q] = yk[j + q * NR];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void first_pass(float2 (&v)[16 / R][R], float2* s, const float2* t1,
+                                           const float2* t2, int log_b) {
+  const int NR = (1 << log_b) / R;
+#pragma unroll
+  for (int i = 0; i < 16 / R; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    if (j < NR) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int b = j + q * NR;
+        v[i][q] = cmul(cmul(v[i][q], t1[b >> kQuadLogBl]), t2[b & (kQuadBl - 1)]);
+      }
+      dft_reg<R>(v[i]);
+#pragma unroll
+      for (int q = 0; q < R; ++q) s[pad16(j * R + q)] = v[i][brev_c<R>(q)];
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void slab_first_pass(const float2* __restrict__ yk, float2* s,
+                                                float2* t1, float2* t2, float2* lo, float2* hi,
+                                                const float2* __restrict__ qt1,
+                                                const float2* __restrict__ qt2,
+                                                const float2* __restrict__ qtw, int k1,
+                                                int log_b) {
+  const int Bh = 1 << (log_b - kQuadLogBl);
+  float2 v[16 / R][R];
+  load_first_pass<R>(yk, v, log_b);
+  for (int i = threadIdx.x; i < kQuadBl; i += blockDim.x) {
+    lo[i] = qtw[i];
+    t2[i] = qt2[k1 * kQuadBl + i];
+  }
+  for (int i = threadIdx.x; i < Bh; i += blockDim.x) {
+    hi[i] = qtw[kQuadBl + i];
+    t1[i] = qt1[k1 * Bh + i];
+  }
+  __syncthreads();
+  first_pass<R>(v, s, t1, t2, log_b);
+}
+
+// w_B^e for 0 <= e < B from the two-level table: lo[e mod 128] * hi[e / 128]
+__device__ __forceinline__ float2 tw_b(const float2* lo, const float2* hi, int e) {
+  return cmul(lo[e & (kQuadBl - 1)], hi[e >> kQuadLogBl]);
+}
+
+// Phase 2, a radix-16 Stockham pass at stride Ns = 2^log_ns > 1, in place in shared
+// memory, twiddles w_B^{q k B / (16 Ns)}.  The last pass (Ns = B/16)
+// leaves X[j + q*Ns] in registers and returns this thread's
+// sum_q wf[j + q*Ns] |X[j + q*Ns]|^2 in a fixed order.
+template <bool kLast>
+__device__ __forceinline__ float slab_pass16(float2* s, const float2* lo, const float2* hi,
+                                             const float* __restrict__ wf, int log_ns,
+                                             int log_b) {
+  const int NR = 1 << (log_b - 4), Ns = 1 << log_ns;
+  const int j = threadIdx.x;
+  const bool active = j < NR;
+  float2 v[16];
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = s[pad16(j + q * NR)];
+    // w^q for w = w_B^{k B / (16 Ns)}, k = j mod Ns: w, w^2, w^4, w^8 from the tables,
+    // the rest as products of those (at most three a twiddle)
+    const int e1 = (j & (Ns - 1)) << (log_b - log_ns - 4);
+    float2 w[16];
+    w[1] = tw_b(lo, hi, e1);
+    w[2] = tw_b(lo, hi, 2 * e1);
+    w[4] = tw_b(lo, hi, 4 * e1);
+    w[8] = tw_b(lo, hi, 8 * e1);
+    w[3] = cmul(w[1], w[2]);
+#pragma unroll
+    for (int q = 5; q < 8; ++q) w[q] = cmul(w[4], w[q - 4]);
+#pragma unroll
+    for (int q = 9; q < 16; ++q) w[q] = cmul(w[8], w[q - 8]);
+#pragma unroll
+    for (int q = 1; q < 16; ++q) v[q] = cmul(v[q], w[q]);
+    dft_reg<16>(v);
+  }
+  float acc = 0.f;
+  if (kLast) {
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const float2 z = v[brev_c<16>(q)];
+        acc = fmaf(__ldg(wf + j + q * Ns), z.x * z.x + z.y * z.y, acc);
+      }
+    }
+  } else {
+    __syncthreads();
+    if (active) {
+      const int base = ((j >> log_ns) << (log_ns + 4)) + (j & (Ns - 1));
+#pragma unroll
+      for (int q = 0; q < 16; ++q) s[pad16(base + q * Ns)] = v[brev_c<16>(q)];
+    }
+    __syncthreads();
+  }
+  return acc;
+}
+
+constexpr int kSlabMaxThreads = 1024;   // B / 16 at B = 2^14
+
+// Phase 2: one block per (k1 = blockIdx.x <= A/2, row blockIdx.y) slab of the half
+// spectrum; Z = DFT_B(tw 1 * Y[k1, :]) in natural k2 order, where bin k1 + A*k2 of the
+// row's spectrum is Z[k2]; partial[r, k1] = sum_k2 wf[k1, k2] |Z[k2]|^2.
+__global__ void __launch_bounds__(kSlabMaxThreads)
+quad_slab_kernel(const float2* __restrict__ y, const float2* __restrict__ qt1,
+                 const float2* __restrict__ qt2, const float2* __restrict__ qtw,
+                 const float* __restrict__ wf, float* __restrict__ partial, int A, int log_b) {
+  extern __shared__ float2 smem[];
+  const int Bh = 1 << (log_b - kQuadLogBl);
+  const int H = A / 2 + 1, k1 = blockIdx.x, r = blockIdx.y;
+  float2* s = smem;
+  float2* lo = s + pad16(1 << log_b);
+  float2* hi = lo + kQuadBl;
+  float2* t1 = hi + Bh;
+  float2* t2 = t1 + Bh;
+  float* red = reinterpret_cast<float*>(t2 + kQuadBl);
+  const float2* yk = y + ((static_cast<size_t>(r) * H + k1) << log_b);
+  const int r0 = log_b & 3;
+  switch (r0) {
+    case 0: slab_first_pass<16>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    case 1: slab_first_pass<2>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    case 2: slab_first_pass<4>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    default: slab_first_pass<8>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+  }
+  __syncthreads();
+  int log_ns = r0 ? r0 : 4;
+  for (; log_ns + 4 < log_b; log_ns += 4) slab_pass16<false>(s, lo, hi, nullptr, log_ns, log_b);
+  float acc = slab_pass16<true>(s, lo, hi, wf + (static_cast<size_t>(k1) << log_b), log_ns,
+                                log_b);
+
+  // block sum in a fixed order
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) sh_red[warp] = acc;
+  if (lane == 0) red[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    acc = lane < nwarps ? sh_red[lane] : 0.f;
+    const int nwarps = blockDim.x >> 5;
+    acc = lane < nwarps ? red[lane] : 0.f;
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) partial[static_cast<size_t>(r) * A + k1] = acc;
+    if (lane == 0) partial[static_cast<size_t>(r) * H + k1] = acc;
   }
 }
 
@@ -312,20 +546,30 @@ int fgp_passb(const float* in_re, const float* in_im, float* out_re, float* out_
   return static_cast<int>(cudaGetLastError());
 }
 
-int fgp_quad(const float* xm, const float* fa_r, const float* fa_i,
-             const float* t1r, const float* t1i, const float* t2r, const float* t2i,
-             const float* t3r, const float* t3i, const float* twh, const float* twl,
-             const float* wk, float* partial, int R, int A, int log_bh, int log_bl,
-             void* stream) {
-  const Tables t{t1r, t1i, t2r, t2i, t3r, t3i, reinterpret_cast<const float2*>(twh),
-                 reinterpret_cast<const float2*>(twl)};
-  const size_t smem = slab_bytes(log_bh, log_bl) + static_cast<size_t>(A) * sizeof(float2) +
+int fgp_quad(const float* x, const float* mean, const float* twa, const float* qt1,
+             const float* qt2, const float* qtw, const float* wf, float* y, float* partial,
+             int R, int A, int log_b, void* stream) {
+  const int B = 1 << log_b;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* tw_a = reinterpret_cast<const float2*>(twa);
+  float2* y2 = reinterpret_cast<float2*>(y);
+  const dim3 grid_a(B / (kPassATile / A), R);
+  switch (A) {
+    case 64: quad_pass_a_kernel<64, 8><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
+    case 128: quad_pass_a_kernel<128, 16><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
+    case 256: quad_pass_a_kernel<256, 16><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int Bh = B >> kQuadLogBl;
+  const size_t smem = static_cast<size_t>(pad16(B) + 2 * kQuadBl + 2 * Bh) * sizeof(float2) +
                       32 * sizeof(float);
-  const dim3 grid(A, R);
-  cudaError_t e;
-  if ((e = allow_smem(quad_kernel, smem, g_granted_quad)) != cudaSuccess) return e;
-  quad_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xm, fa_r, fa_i, t, wk, partial, A, log_bh, log_bl);
+  if ((e = allow_smem(quad_slab_kernel, smem, g_granted_quad)) != cudaSuccess) return e;
+  const int threads = B / 16 > 32 ? B / 16 : 32;
+  quad_slab_kernel<<<dim3(A / 2 + 1, R), threads, smem, s>>>(
+      y2, reinterpret_cast<const float2*>(qt1), reinterpret_cast<const float2*>(qt2),
+      reinterpret_cast<const float2*>(qtw), wf, partial, A, log_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,14 +26,21 @@ runs its plain version for CPU tensors, and raises for anything else):
   ``pifft`` run backwards with the conjugate tables); the same bound.  It
   writes k1-major so the inverse pass A (with 1/n) is a plain matmul.
 * **K3** :func:`quad_partials` <- ``pallas_fft._quad_kernel`` (``pfft_quad``):
-  pass A, pass B and ``sum w |Z|^2`` fused; the spectrum never reaches device
-  memory.  The function is bound on the H100 by the single 4 MB read of an
-  n = 2^20 row (~1.3 us; a real FFT of the row is ~2.5*n*log2(n) FLOP,
-  ~0.8 us).  This kernel does more work than that: pass A runs inside it
-  as a direct length-A DFT per k1 (4*A*n FLOP a row, ~4 us at A = 64), and
-  the A blocks of a row re-read it from L2.  It writes one partial sum per
-  (row, k1), reduced in a fixed order; ``torch.sum`` over k1 follows, so
-  the result is deterministic (no atomics).
+  ``sum w |Z|^2`` over the spectrum of mean-centred real rows (centred as
+  pass A loads them when given the row means), the spectrum never written
+  whole.  The function is bound on the H100 by the single
+  4 MB read of an n = 2^20 row (~1.3 us; a real FFT of the row is
+  ~2.5*n*log2(n) FLOP, ~0.8 us).  A call is two launches on K3's own
+  split n = A*B (:func:`_quad_plan`: 256 x 2^12 at n = 2^20, so a slab is
+  32 KB): pass A as a length-A FFT, writing only the slabs k1 = 0..A/2
+  (for real rows slab A - k1 is the conjugate mirror of slab k1), then one
+  block per (row, k1 <= A/2) slab for the length-B DFT as Stockham
+  radix-16 passes and the sum with the folded weights of
+  :func:`fold_weights`.  The half spectrum (R, A/2+1, B) is scratch: at
+  n = 2^20 the call moves ~3x the fused bound.  One
+  partial sum per (row, k1 <= A/2), reduced in a fixed order; ``torch.sum``
+  over them follows, so the result is deterministic (no atomics).
+  :func:`quad_emulate` is the same two-phase algorithm in plain PyTorch.
 
 Inputs are float32; pass A and its inverse are ``torch.matmul`` on float32
 planes at full precision (TF32 is off, see ``config``), as the JAX package
@@ -80,6 +87,16 @@ def _plan(n: int):
     while K1B > 8 and 6 * K1B * B * 8 > (8 << 20):
         K1B //= 2
     return A, Bh, Bl, K1B
+
+
+@functools.lru_cache(maxsize=None)
+def _quad_plan(n: int):
+    """K3's own split n = A * B: A in {64, 128, 256}, with B = n / A at most
+    2^12 where A = 256 allows it (2^13 and 2^14 at n = 2^21 and 2^22), so
+    that a slab (32 KB at B = 2^12) leaves room for several blocks an SM and
+    its FFT takes three radix-16 passes.  Returns (A, B)."""
+    A = min(256, max(_plan(n)[0], n >> 12))
+    return A, n // A
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +148,11 @@ def _twiddle_row(F) -> np.ndarray:
     return np.ascontiguousarray(np.stack([F[0][1, :L // 2], F[1][1, :L // 2]], -1))
 
 
+def _pairs(ph):
+    """Interleaved float32 (re, im) pairs of exp(i*ph), ph in float64."""
+    return np.ascontiguousarray(np.stack([np.cos(ph), np.sin(ph)], -1), dtype=np.float32)
+
+
 @functools.lru_cache(maxsize=32)
 def _dev_tables(n: int, inverse: bool, device: torch.device) -> dict:
     t = _tables(n, inverse)
@@ -139,6 +161,20 @@ def _dev_tables(n: int, inverse: bool, device: torch.device) -> dict:
         out[k] = (torch.from_numpy(re).to(device), torch.from_numpy(im).to(device))
     out["twh"] = torch.from_numpy(_twiddle_row(t["FBh"])).to(device)
     out["twl"] = torch.from_numpy(_twiddle_row(t["FBl"])).to(device)
+    if not inverse:
+        # K3 on its own split (A, B), B = Bh * Bl with Bl = 128: w_A^j (j < A);
+        # w_B^j (j < Bl), then w_B^{Bl j} (j < Bh); tw 1 w_n^{k1 b} for
+        # k1 <= A/2 as w_n^{k1 Bl bh} (A/2+1, Bh) and w_n^{k1 bl} (A/2+1, Bl)
+        A, B = _quad_plan(n)
+        Bl = 128
+        Bh = B // Bl
+        k1 = np.arange(A // 2 + 1, dtype=np.float64)[:, None]
+        for key, ph in (("twa", 2 * np.pi / A * np.arange(A)),
+                        ("qtw", 2 * np.pi / B * np.concatenate([np.arange(Bl),
+                                                                 Bl * np.arange(Bh)])),
+                        ("qt1", 2 * np.pi / n * k1 * Bl * np.arange(Bh)),
+                        ("qt2", 2 * np.pi / n * k1 * np.arange(Bl))):
+            out[key] = torch.from_numpy(_pairs(-ph)).to(device)
     return out
 
 
@@ -270,25 +306,128 @@ def passb_inv(Xr, Xi, n: int):
     return _passb_cuda(Xr, Xi, n, inverse=True)
 
 
-def quad_partials(xm, wk, n: int):
-    """K3: mean-centred (R, n) float32 rows and (Bh, A, Bl) weights -> (R, A)
-    per-k1 partial sums of ``wk * |pfft(xm)|^2``."""
-    if xm.device.type == "cpu":
-        return quad_plain(xm, wk, n)
-    A, Bh, Bl, _ = _plan(n)
-    R = xm.shape[0]
-    _check(xm, (R, n), "quad rows")
-    _check(wk, (Bh, A, Bl), "quad weights")
-    if xm.data_ptr() % 16:
-        raise ValueError("quad rows must be 16-byte aligned (float4 loads)")
+@functools.lru_cache(maxsize=None)
+def _fold_index(n: int):
+    """Indices into the flat permuted weights for K3's folded weights, on its
+    split (A, B) = ``_quad_plan(n)``: ``idx`` (A/2+1, B) of bin k = k1 + A*k2,
+    and ``mirror`` (A/2-1, B) of bin n - k for the slabs 1 <= k1 < A/2, whose
+    conjugate mirror slab A - k1 is not computed (slabs 0 and A/2 hold both
+    bins of every pair)."""
+    A = _quad_plan(n)[0]
+    inv = np.argsort(spectrum_perm(n))          # inv[k]: permuted position of bin k
+    k = np.arange(A // 2 + 1)[:, None] + A * np.arange(n // A)[None, :]
+    return inv[k], inv[n - k[1:A // 2]]
+
+
+@functools.lru_cache(maxsize=32)
+def _dev_fold_index(n: int, device: torch.device):
+    return tuple(torch.from_numpy(i.reshape(-1)).to(device) for i in _fold_index(n))
+
+
+def fold_weights(wk, n: int):
+    """(Bh, A, Bl) permuted weights -> (A/2+1, B) folded weights ``w'[k1, k2]``
+    of bin k = k1 + A*k2: ``w_k + w_{n-k}`` for 1 <= k1 < A/2, ``w_k`` for
+    k1 = 0 and A/2.  For a real row, ``sum_k w_k |X_k|^2 ==
+    sum_{k1 <= A/2, k2} w'[k1, k2] |X_{k1 + A k2}|^2``.  A zeroed DC weight
+    stays zero: bin 0 lies in slab 0, which is not folded.  (A, B) is
+    ``_quad_plan(n)``."""
+    A = _quad_plan(n)[0]
+    idx, mirror = _dev_fold_index(n, wk.device)
+    flat = wk.reshape(-1)
+    wf = flat.index_select(0, idx).reshape(A // 2 + 1, n // A)
+    wf[1:A // 2] += flat.index_select(0, mirror).reshape(A // 2 - 1, n // A)
+    return wf
+
+
+def _dft_mat(m: int, dtype):
+    j = np.arange(m)
+    ph = (-2 * np.pi / m) * np.outer(j, j)
+    return torch.complex(torch.from_numpy(np.cos(ph)), torch.from_numpy(np.sin(ph))).to(dtype)
+
+
+def _expi(ph, dtype):
+    return torch.complex(torch.cos(ph), torch.sin(ph)).to(dtype)
+
+
+def quad_half_pass_a(xm, n: int):
+    """K3 phase 1 in plain PyTorch: real (R, n) rows -> (R, A/2+1, B) complex
+    ``Y[k1, b] = sum_a x[a, b] w_A^{a k1}`` for k1 <= A/2, as the kernel
+    factors it: (A, B) = ``_quad_plan(n)``, A = A1*A2, a = A2*a1 + a2,
+    k1 = p + A1*q."""
+    A = _quad_plan(n)[0]
+    A1 = 8 if A == 64 else 16
+    A2 = A // A1
+    R, B = xm.shape[0], n // A
+    cdt = torch.complex128 if xm.dtype == torch.float64 else torch.complex64
+    x = xm.reshape(R, A1, A2, B).to(cdt)                                # [r, a1, a2, b]
+    u = torch.einsum("ip,riab->rapb", _dft_mat(A1, cdt), x)            # [r, a2, p, b]
+    a2p = torch.outer(torch.arange(A2), torch.arange(A1)).double()
+    u = u * _expi((-2 * np.pi / A) * a2p, cdt)[None, :, :, None]
+    y = torch.einsum("aq,rapb->rqpb", _dft_mat(A2, cdt), u)            # [r, q, p, b]
+    return y.reshape(R, A, B)[:, :A // 2 + 1]
+
+
+def quad_slab_sums(y, wf, n: int):
+    """K3 phase 2 in plain PyTorch: (R, A/2+1, B) half pass-A output and
+    (A/2+1, B) folded weights -> (R, A/2+1) per-slab sums
+    ``sum_k2 wf[k1, k2] |DFT_B(w_n^{k1 b} Y[k1, b])[k2]|^2``, the DFT as the
+    kernel's Stockham passes (radix 2^(log2 B mod 4) first, then 16s)."""
+    A, B = _quad_plan(n)
+    H = A // 2 + 1
+    m = log2_int(B)
+    cdt = y.dtype
+    k1b = torch.outer(torch.arange(H), torch.arange(B)).double()
+    z = y * _expi((-2 * np.pi / n) * k1b, cdt)                         # tw 1
+    radices = ([1 << (m % 4)] if m % 4 else []) + [16] * (m // 4)
+    ns = 1
+    for r in radices:
+        j = torch.arange(B // r)
+        k = j % ns
+        q = torch.arange(r)
+        v = z[..., j[None, :] + (B // r) * q[:, None]]                 # [.., q, j]
+        v = v * _expi((-2 * np.pi / (ns * r)) * torch.outer(q, k).double(), cdt)
+        v = torch.einsum("qp,...qj->...pj", _dft_mat(r, cdt), v)
+        dest = (j // ns) * ns * r + k
+        out = torch.empty_like(z)
+        out[..., dest[None, :] + ns * q[:, None]] = v
+        z, ns = out, ns * r
+    return torch.einsum("rkb,kb->rk", z.real ** 2 + z.imag ** 2, wf.to(z.real.dtype))
+
+
+def quad_emulate(x, wk, n: int, mean):
+    """K3's two-phase algorithm in plain PyTorch (any device, float32 or
+    float64): (R, n) rows, centred by subtracting ``mean`` (R,), and
+    (Bh, A, Bl) weights -> (R, A/2+1) per-slab partial sums, whose row sums
+    equal those of :func:`quad_plain` on the centred rows."""
+    return quad_slab_sums(quad_half_pass_a(x - mean[:, None], n), fold_weights(wk, n), n)
+
+
+def quad_partials(x, wk, n: int, mean):
+    """K3: (R, n) float32 rows ``x``, their (R,) means and (Bh, A, Bl)
+    weights -> per-row partial sums of ``wk * |pfft(x - mean)|^2``: (R, A)
+    per k1 of ``_plan(n)`` from the plain version for CPU tensors,
+    (R, A/2+1) per half-spectrum slab of ``_quad_plan(n)`` from the two
+    kernels for CUDA tensors.  The kernel centres a row as it loads it, so
+    the caller writes no centred copy."""
+    if x.device.type == "cpu":
+        return quad_plain(x - mean[:, None], wk, n)
+    R = x.shape[0]
+    _check(x, (R, n), "quad rows")
+    _check(mean, (R,), "quad row means")
+    A0, Bh, Bl, _ = _plan(n)
+    _check(wk, (Bh, A0, Bl), "quad weights")
+    A, B = _quad_plan(n)
     lib = cuda_lib.load()
-    t = _dev_tables(n, False, xm.device)
-    partial = torch.empty((R, A), dtype=torch.float32, device=xm.device)
-    with torch.cuda.device(xm.device):
+    t = _dev_tables(n, False, x.device)
+    wf = fold_weights(wk, n)
+    H = A // 2 + 1
+    y = torch.empty((R, H, B, 2), dtype=torch.float32, device=x.device)
+    partial = torch.empty((R, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fgp_quad(_ptr(xm), _ptr(t["FA"][0]), _ptr(t["FA"][1]), *_table_ptrs(t),
-                           _ptr(wk), _ptr(partial), R, A, log2_int(Bh), log2_int(Bl),
-                           ctypes.c_void_p(stream))
+        err = lib.fgp_quad(*[_ptr(v) for v in (x, mean, t["twa"], t["qt1"], t["qt2"],
+                                                 t["qtw"], wf, y, partial)],
+                           R, A, log2_int(B), ctypes.c_void_p(stream))
     cuda_lib.check(lib, err, "fgp_quad")
     launches["quad"] += 1
     return partial
@@ -345,20 +484,20 @@ def pifft_real(X, n: int):
 
 
 def pfft_quad(x, w, n: int):
-    """``sum_b w_b * |pfft_stable(x)_b|^2`` per row, fused in K3.
+    """``sum_b w_b * |pfft_stable(x)_b|^2`` per row, through K3.
 
     ``w``: real (n,) weights in permuted bin order; the 1/n orthonormal
-    normalization is folded in.  The mean-centring and the exact stabilized
-    DC term ``w_0 * n * mean^2`` are done here, around the kernel, as in the
-    JAX package.  Not differentiable (query paths only)."""
+    normalization is folded in.  The stabilization is the JAX package's:
+    the row mean is taken here and subtracted from the row (by the kernel as
+    it loads the row), and the exact DC term ``w_0 * n * mean^2`` is added
+    here.  Not differentiable (query paths only)."""
     A, Bh, Bl, _ = _plan(n)
     x2, lead = _flatten_batch(x, n)
-    x2 = x2.to(torch.float32)
+    x2 = x2.to(torch.float32).contiguous()
     m = x2.mean(-1)
-    xm = (x2 - m[:, None]).contiguous()
     w32 = w.to(torch.float32)
     wk = (w32 * (1.0 / n)).reshape(Bh, A, Bl).contiguous()
     wk.view(-1)[:1].zero_()       # DC weight: its exact term is added below
-    quad = quad_partials(xm, wk, n).sum(-1)
+    quad = quad_partials(x2, wk, n, m).sum(-1)
     quad = quad + w32[0] * float(n) * m * m
     return quad.reshape(lead)

@@ -82,15 +82,18 @@ def test_wrappers_take_plain_path_only_on_cpu():
         tp.passb(meta, meta, n)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tp.quad_partials(meta, torch.empty(tp._plan(n)[1], tp._plan(n)[0],
-                                           tp._plan(n)[2], device="meta"), n)
+                                           tp._plan(n)[2], device="meta"), n,
+                         torch.empty(1, device="meta"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,R", [(1 << 14, 3), (1 << 15, 2), (1 << 17, 2), (1 << 20, 1),
-                                 (1 << 20, 59), (1 << 22, 1)])
+@pytest.mark.parametrize("n,R", [(1 << 14, 3), (1 << 15, 2), (1 << 17, 2), (1 << 17, 3),
+                                 (1 << 20, 1), (1 << 20, 25), (1 << 20, 59), (1 << 22, 1)])
 def test_kernels_match_plain_on_card(n, R):
     """K1-K3 on the card against their plain versions (float32, relative to
-    the max; the kernels sum in another order than the plain einsums)."""
+    the max; the kernels sum in another order than the plain einsums).  K3's
+    per-row sums are compared: the kernels give one partial per slab k1 <=
+    A/2, the plain version one per k1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -103,9 +106,9 @@ def test_kernels_match_plain_on_card(n, R):
     jr, ji = tp.passb_inv(pr.to(dev), pi.to(dev), n)
     want = torch.complex(ir, ii).reshape(R, n).numpy()
     assert _rel(torch.complex(jr, ji).cpu().numpy(), want) < 3e-6
-    xm = torch.randn(R, n, generator=g)
-    xm -= xm.mean(-1, keepdim=True)
+    x = torch.randn(R, n, generator=g) + 2.0
+    m = x.mean(-1)
     A, Bh, Bl, _ = tp._plan(n)
     wk = torch.rand(Bh, A, Bl, generator=g)
-    q = tp.quad_partials(xm.to(dev), wk.to(dev), n).sum(-1).cpu().numpy()
-    assert _rel(q, tp.quad_plain(xm, wk, n).sum(-1).numpy()) < 3e-6
+    q = tp.quad_partials(x.to(dev), wk.to(dev), n, m.to(dev)).sum(-1).cpu().numpy()
+    assert _rel(q, tp.quad_plain(x - m[:, None], wk, n).sum(-1).numpy()) < 3e-6
