@@ -20,18 +20,23 @@ Phases; any failure raises and the exit code is not 0:
    first request pays what a fresh serving process pays.  One more
    ``post_mean_var`` of each runs under ``torch.profiler`` for the
    device-time split.
-3. Kernels K1-K3 (``ops/perm_fft``): each CUDA kernel against its plain
-   PyTorch version on the same inputs, at the main path's shapes (n = 2^20
-   with R = 1 and R = 59 rows) and at n = 2^14, plus the public ops against
-   float64 numpy.  K3 (two launches a call: pass A, then the half-spectrum
-   slabs) also at n = 2^15, 2^17, 2^20 with the last query chunk's R = 25,
-   and 2^22.  Times of the kernel, the plain version and one library
-   yardstick (``torch.fft``) on the same inputs, each a CUDA graph of
-   repeated calls replayed between CUDA events, beside the bound: the least
-   time for the function's work (its inputs read and outputs written once,
-   or the FLOPs of the best FFT algorithm, whichever takes longer).  For K3
-   a second yardstick is logged: ``torch.fft.rfft`` with the weights of
-   each conjugate pair summed, the strongest single-call form.
+3. Kernels K1-K3 (``ops/perm_fft``, each two launches a call): K1 and K2
+   are the whole ops ``pfft`` (real and complex rows) and ``pifft_real``,
+   held against their plain PyTorch versions at every split the kernels
+   take (``K12_CASES``: n = 2^14..2^22, R = 1, 2, 3 and 59), with ``pfft``
+   against float64 numpy and the round trip.  K3 (pass A, then the
+   half-spectrum slabs) against its plain version at n = 2^14, 2^15, 2^17,
+   2^20 (R = 1, 25, 59) and 2^22, and ``pfft_quad`` against float64 numpy.
+   At n = 2^14 and the main path's shapes (n = 2^20 with R = 1 and 59):
+   times of the op, the plain version and one library yardstick
+   (``torch.fft``) on the same inputs, each a CUDA graph of repeated calls
+   replayed between CUDA events, beside the bound: the least time for the
+   function's work (its inputs read and outputs written once, or the FLOPs
+   of the best FFT algorithm, whichever takes longer).  K1/K2's "kernel"
+   time is the device time of their two launches (``torch.profiler``), the
+   "whole op" time the graph's time a call.  For K3 a second yardstick is
+   logged: ``torch.fft.rfft`` with the weights of each conjugate pair
+   summed, the strongest single-call form.
    Kernel K4 (``ops/fwht``) the same way at n = 2^14, R = 3 and at the
    shapes of the digital-net path (n = 2^20 with R = 1 and the query chunk,
    R = 119; n = 2^22, R = 1), and against float64 and float32 numpy
@@ -116,13 +121,11 @@ def torch_complex_or_double(*ts):
     return torch.complex128 if any(t.is_complex() for t in ts) else torch.float64
 
 
-def passb_flops(n, R):
-    """Least FLOPs of pass B (K1/K2), whatever the kernel does: the twiddle
-    w_n^{k1 b} (a complex product, 6 FLOP a point) and a radix-2 FFT of
-    length B = n / A per (row, k1) (5 B log2 B FLOP)."""
-    from fastgaussianprocesses_torch.ops.perm_fft import _plan
-    A, Bh, Bl, _ = _plan(n)
-    return R * n * (6 + 5 * math.log2(Bh * Bl))
+def fft_flops(n, R):
+    """Least FLOPs of K1/K2's functions on real rows of length n, whatever
+    the kernel does: a real-input FFT (2.5 n log2 n FLOP a row) for ``pfft``,
+    and its transpose, a complex-to-real inverse, for ``pifft_real``."""
+    return R * n * 2.5 * math.log2(n)
 
 
 def quad_flops(n, R):
@@ -141,15 +144,73 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# (n, R) at which K1/K2 are held against their plain versions: every split the kernels
+# take (theirs differs from _plan's at 2^19, 2^20, 2^21), the main path's R = 1 and the
+# query chunk's R = 59
+K12_CASES = [(1 << 14, 3), (1 << 15, 2), (1 << 17, 3), (1 << 19, 1), (N_MAIN, 1), (N_MAIN, 59),
+             (1 << 21, 1), (1 << 22, 1)]
+
+
+def dev_us(e):
+    """Device time of a profiler event of a CUDA kernel (the attribute's name
+    varies by release), 0 for anything else."""
+    if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        return 0.0
+    return float(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+
+
+def device_ms(torch, fn, names, iters=20):
+    """Device time per call of ``fn``'s CUDA kernels whose names contain one
+    of ``names`` (torch.profiler over ``iters`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(dev_us(e) for e in prof.key_averages() if any(k in e.key for k in names))
+    if not us > 0:
+        raise AssertionError(f"the profiler recorded no device time for {names}")
+    return us / iters / 1e3
+
+
+def check_k12(torch, tp, g):
+    """Phase 3 for K1/K2: the whole ops ``pfft`` (real and complex rows) and
+    ``pifft_real`` (on both spectra) against their plain versions at
+    ``K12_CASES``; ``pfft`` of the first row against float64 numpy, and the
+    round trip."""
+    dev = torch.device("cuda")
+    for n, R in K12_CASES:
+        x = (torch.randn(R, n, generator=g) + 2.0).to(dev)
+        xc = torch.complex(torch.randn(R, n, generator=g), torch.randn(R, n, generator=g)).to(dev)
+        errs = []
+        for rows in (x, xc):
+            X = tp.pfft_plain(rows, n)
+            errs.append(rel_err(tp.pfft(rows, n), X)[0])
+            errs.append(rel_err(tp.pifft_real(X, n), tp.pifft_real_plain(X, n))[0])
+        want = np.fft.fft(x[:1].cpu().double().numpy(), axis=-1)[:, tp.spectrum_perm(n)]
+        got = tp.pfft(x[:1], n)
+        e_op = rel_err(got, torch.from_numpy(want))[0]
+        e_rt = float((tp.pifft_real(got, n) - x[:1]).abs().max())
+        log(f"  K1/K2 n=2^{int(math.log2(n))} R={R:2d}: max rel err vs plain: pfft real "
+            f"{errs[0]:.3e}, complex {errs[2]:.3e}; pifft_real {errs[1]:.3e}, {errs[3]:.3e} "
+            f"(tol {TOL_KERNEL:.0e}); pfft vs float64 numpy {e_op:.3e} (tol 3e-6), round trip "
+            f"{e_rt:.3e} abs (tol 2e-5)")
+        if not (max(errs) < TOL_KERNEL and e_op < 3e-6 and e_rt < 2e-5):
+            raise AssertionError(f"K1/K2 disagree with their references at n={n}, R={R}")
+        del x, xc, X, got
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, tp):
     """Phase 3: every kernel against its plain version; times and bounds."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
+    check_k12(torch, tp, g)
     rows = {}
     for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)]:
         A, Bh, Bl, _ = tp._plan(n)
-        Yr = torch.randn(R, n, generator=g).to(dev)
-        Yi = torch.randn(R, n, generator=g).to(dev)
         x = torch.randn(R, n, generator=g).to(dev) + 2.0
         mx = x.mean(-1)
         xm = (x - mx[:, None]).contiguous()
@@ -160,12 +221,10 @@ def phase_kernels(torch, tp):
         w_nat[perm] = wk.reshape(n)
         w_perm = wk.reshape(n) * n       # pfft_quad's weights (it folds in 1/n)
 
-        kr, ki = tp.passb(Yr, Yi, n)
-        pr, pi = tp.passb_plain(Yr, Yi, n)
-        e1 = rel_err(torch.complex(kr, ki), torch.complex(pr, pi))
-        jr, ji = tp.passb_inv(pr, pi, n)
-        qr, qi = tp.passb_inv_plain(pr, pi, n)
-        e2 = rel_err(torch.complex(jr, ji), torch.complex(qr, qi).reshape(R, n))
+        X = tp.pfft(x, n)
+        e1 = rel_err(X, tp.pfft_plain(x, n))
+        xb = tp.pifft_real(X, n)
+        e2 = rel_err(xb, tp.pifft_real_plain(X, n))
         q = tp.quad_partials(x, wk, n, mx)
         e3 = rel_err(q.sum(-1), tp.quad_plain(xm, wk, n).sum(-1))
         if n == N_MAIN and R == 59:
@@ -183,30 +242,23 @@ def phase_kernels(torch, tp):
                     raise AssertionError(f"K3 disagrees with its plain version at n={n3}, R={R3}")
             del x3, wk3
         torch.cuda.synchronize()
-        for name, (rel, ab) in (("K1 passb", e1), ("K2 passb_inv", e2), ("K3 quad", e3)):
+        for name, (rel, ab) in (("K1 pfft", e1), ("K2 pifft_real", e2), ("K3 quad", e3)):
             log(f"  {name:13s} n=2^{int(math.log2(n))} R={R:2d}: max rel err vs plain "
                 f"{rel:.3e} (tol {TOL_KERNEL:.0e}), max abs {ab:.3e}")
             if not rel < TOL_KERNEL:
                 raise AssertionError(f"{name} disagrees with its plain version at n={n}, R={R}")
 
-        # public ops against float64 numpy (one row; the JAX package's tolerances)
+        # pfft_quad against float64 numpy (one row; the JAX package's tolerance)
         x0 = x[:1].cpu().double().numpy()
-        want = np.fft.fft(x0, axis=-1)[:, tp.spectrum_perm(n)]
-        got = tp.pfft(x[:1], n)
-        e_op = rel_err(got, torch.from_numpy(want))[0]
-        back = tp.pifft_real(got, n)
-        e_rt = float((back - x[:1]).abs().max())
         xm0 = x0 - x0.mean(-1, keepdims=True)
         sp = np.fft.fft(xm0, axis=-1)[:, tp.spectrum_perm(n)] / math.sqrt(n)
         sp[:, 0] += x0.mean() * math.sqrt(n)
         wfull = wk.reshape(n).double().cpu().numpy() * n
         want_q = (wfull * np.abs(sp) ** 2).sum(-1)
-        e_q = rel_err(tp.pfft_quad(x[:1], w_perm, n),
-                      torch.from_numpy(want_q))[0]
-        log(f"  ops vs float64 numpy: pfft {e_op:.3e} (tol 3e-6), pifft_real round trip "
-            f"{e_rt:.3e} abs (tol 2e-5), pfft_quad {e_q:.3e} (tol 3e-6)")
-        if not (e_op < 3e-6 and e_rt < 2e-5 and e_q < 3e-6):
-            raise AssertionError(f"public op disagrees with float64 numpy at n={n}")
+        e_q = rel_err(tp.pfft_quad(x[:1], w_perm, n), torch.from_numpy(want_q))[0]
+        log(f"  pfft_quad vs float64 numpy {e_q:.3e} (tol 3e-6)")
+        if not e_q < 3e-6:
+            raise AssertionError(f"pfft_quad disagrees with float64 numpy at n={n}")
 
         it_k, it_p = (50, 10) if R == 1 else (10, 3)
         # second K3 yardstick: the real-input FFT, each conjugate pair's weights summed
@@ -217,21 +269,22 @@ def phase_kernels(torch, tp):
         log(f"  K3 n=2^{int(math.log2(n))} R={R:2d}: rfft + folded weights "
             f"{gtime(lambda: (w_r * torch.fft.rfft(xm).abs().square()).sum(-1), it_k):.4f} ms "
             f"(rel err vs plain {e_r:.1e})")
+        # K1/K2: the whole op is the two launches; "kernel" is their device time
         t = {
-            "K1": (gtime(lambda: tp.passb(Yr, Yi, n), it_k),
-                   gtime(lambda: tp.passb_plain(Yr, Yi, n), it_p),
+            "K1": (device_ms(torch, lambda: tp.pfft(x, n), ("pass_a_kernel", "pfft_slab_kernel")),
+                   gtime(lambda: tp.pfft_plain(x, n), it_p),
                    # library: the whole pfft (DFT + gather to the permuted order)
                    gtime(lambda: torch.fft.fft(x).index_select(-1, perm), it_k),
                    gtime(lambda: tp.pfft(x, n), it_k),
-                   nbytes(Yr, Yi, kr, ki),
-                   passb_flops(n, R)),
-            "K2": (gtime(lambda: tp.passb_inv(pr, pi, n), it_k),
-                   gtime(lambda: tp.passb_inv_plain(pr, pi, n), it_p),
-                   gtime(lambda: torch.fft.ifft(torch.complex(pr, pi).index_select(
-                       -1, inv_perm)).real, it_k),
-                   gtime(lambda: tp.pifft_real(torch.complex(pr, pi), n), it_k),
-                   nbytes(pr, pi, jr, ji),
-                   passb_flops(n, R)),
+                   nbytes(x, X),
+                   fft_flops(n, R)),
+            "K2": (device_ms(torch, lambda: tp.pifft_real(X, n),
+                             ("pifft_slab_kernel", "pass_a_kernel")),
+                   gtime(lambda: tp.pifft_real_plain(X, n), it_p),
+                   gtime(lambda: torch.fft.ifft(X.index_select(-1, inv_perm)).real, it_k),
+                   gtime(lambda: tp.pifft_real(X, n), it_k),
+                   nbytes(X, xb),
+                   fft_flops(n, R)),
             "K3": (gtime(lambda: tp.quad_partials(x, wk, n, mx), it_k),
                    gtime(lambda: tp.quad_plain(xm, wk, n), it_p),
                    gtime(lambda: (w_nat * torch.fft.fft(xm).abs().square()).sum(-1), it_k),
@@ -247,7 +300,7 @@ def phase_kernels(torch, tp):
             err = {"K1": e1, "K2": e2, "K3": e3}[k][1]
             rows[(k, n, R)] = dict(ms=ms, plain_ms=pms, library_ms=lms, op_ms=oms,
                                    bound_ms=bms, bound_by=by, max_abs_err=err)
-        del Yr, Yi, x, xm, kr, ki, pr, pi, jr, ji, qr, qi
+        del x, xm, X, xb
         torch.cuda.empty_cache()
     return rows
 
@@ -345,11 +398,6 @@ def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours):
         gp.post_mean_var(xq)
         sync()
         wall = time.perf_counter() - t0
-    def dev_us(e):   # device time of a kernel event (attribute name varies by release)
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            return 0.0
-        return float(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
-
     evs = [(dev_us(e), e) for e in prof.key_averages()]
     evs = sorted([(t, e) for t, e in evs if t > 0], key=lambda te: -te[0])
     total = sum(t for t, _ in evs)
@@ -470,7 +518,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
     counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
-                              ("passb", "passb_inv", "quad"), ("passb_kernel", "quad_"))
+                              ("pfft", "pifft_real", "quad"), ("pass_a_kernel", "slab_kernel"))
     log("phase 2: serving FastGPDigitalNetB2(d=8) at n=2^20 on the card")
     counts_dn, nb = phase_serving(torch, ft, (tp, tf), ft.FastGPDigitalNetB2, "_FastSolver",
                                   ("fwht",), ("fwht_",))
@@ -493,8 +541,8 @@ def main():
                      ((5e-5, 5e-5, 1e-4, 5e-5, 5e-5), (5e-4, 5e-3, 1.5e-2, 5e-6, 3e-2)))
 
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
-    spec = [("K1 perm_fft.passb", "K1", 1, "passb", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
-            ("K2 perm_fft.passb_inv", "K2", 1, "passb_inv",
+    spec = [("K1 perm_fft.pfft", "K1", 1, "pfft", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
+            ("K2 perm_fft.pifft_real", "K2", 1, "pifft_real",
              "fastgaussianprocesses_tpu/ops/pallas_fft.py:268"),
             ("K3 perm_fft.quad_partials", "K3", 59, "quad",
              "fastgaussianprocesses_tpu/ops/pallas_fft.py:419")]

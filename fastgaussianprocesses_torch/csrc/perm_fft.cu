@@ -1,68 +1,67 @@
 // Permuted-spectrum FFT kernels for Hopper (sm_90a), plain C interface.
 //
-// Counterparts of the Pallas TPU kernels in fastgaussianprocesses_tpu/ops/pallas_fft.py:
-//   fgp_passb (inverse = 0)  <- _passb_kernel      (K1, pass B of pfft)
-//   fgp_passb (inverse = 1)  <- _passb_inv_kernel  (K2, pass B of pifft, run backwards)
-//   fgp_quad                 <- _quad_kernel       (K3, pass A + pass B + w|Z|^2, two launches:
-//                               quad_pass_a_kernel, then quad_slab_kernel)
+// Counterparts of the Pallas TPU kernels in fastgaussianprocesses_tpu/ops/pallas_fft.py,
+// each entry point two launches on one stream:
+//   fgp_pfft       <- _passb_kernel      (K1: the whole pfft, pass A included):
+//                     pass_a_kernel, then pfft_slab_kernel
+//   fgp_pifft_real <- _passb_inv_kernel  (K2: the whole pifft_real, inverse pass A included):
+//                     pifft_slab_kernel, then pass_a_kernel
+//   fgp_quad       <- _quad_kernel       (K3: per row sum_k w_k |X_k|^2, X never stored whole):
+//                     pass_a_kernel, then quad_slab_kernel
 //
-// Factorization (same tables and bin order as the JAX package):
-//   n = A * B,  B = Bh * Bl,   j = a*B + bh*Bl + bl,   k = k1 + A*kh + A*Bh*kl
-//   pass A : Y[k1, b]      = sum_a F_A[k1, a] x[a, b]
-//   tw 1   : Y[k1, bh, bl] *= T1[k1, bh] * T2[k1, bl]        (= w_n^{k1 b})
-//   DFT_Bh : Z[kh, bl]     = sum_bh F_Bh[kh, bh] Y[bh, bl]
-//   tw 2   : Z            *= T3[kh, bl]                      (= w_B^{kh bl})
-//   DFT_Bl : O[kh, kl]     = sum_bl Z[kh, bl] F_Bl[bl, kl]
-// and the spectrum is stored as (Bh, A, Bl): out[kh, k1, kl] = X[k1 + A*kh + A*Bh*kl].
+// Split.  All three run on one split n = A * B (_slab_plan in ops/perm_fft.py: A in
+// {64, 128, 256}, B = n / A, so A = 256, B = 2^12 at n = 2^20), j = a*B + b, bins
+// k = k1 + A*k2:
+//   pass A : Y[k1, b]      = sum_a x[a, b] w_A^{a k1}
+//   slab   : X[k1 + A*k2]  = sum_b w_B^{b k2} (w_n^{k1 b} Y[k1, b])        ("tw 1" = w_n^{k1 b})
+// K1 writes X in the JAX package's permuted order, _plan's (Bh, A0, Bl) layout (A0 = _plan's
+// A, Bl = 128, Bh = n / (A0 Bl)): bin k = k1' + A0*kh + A0*Bh*kl at (kh*A0 + k1')*Bl + kl.
+// With c = A / A0 (1, 2 or 4; the splits coincide at n <= 2^18 and 2^22) and
+// k1 = k1h*A0 + k1', slab k1 holds, for each g < G = B/128, the run kl = 0..127 of
+// kh = k1h + c*g at k2 = g + G*kl: G runs of 128 contiguous bins (1 KB) of the output row.
+// K2 uses ifft(X) = conj(fft(conj X)) / n with the two factors in swapped roles:
+//   x[a*B + b] = (1/n) Re sum_k1 w_A^{a k1} w_n^{b k1} sum_k2 conj(X[k1 + A k2]) w_B^{b k2}
+// so it runs the forward slab DFT on the conjugated slab, tw 1 after it, then the forward
+// pass A, keeping the real part: K1's tables and code, in the other order.
 //
-// Design.  One thread block owns one (row r, k1) slab of B = Bh*Bl complex values
-// (128 KB of dynamic shared memory at B = 2^14).  The two short DFTs run as radix-2
-// butterflies inside shared memory: decimation in time down the bh axis (the slab is
-// stored bh-bit-reversed on load, so that pass yields natural kh) and decimation in
-// frequency along the bl axis (natural in, bit-reversed out; the store un-reverses).
-// The inverse kernel runs the same stages in reverse order with the conjugate tables.
-// All arithmetic is float32 FFMA; the twiddles come from the float64-built tables.
-// The TPU kernels hold K1B (8..128) k1 rows per grid step because VMEM is large; here a
-// block holds exactly one slab, so the grid is (A, R) and K1/K2 at R = 1 fill only
-// A = 64 of the 132 SMs at n = 2^20.
+// Bound on the H100.  pfft of a real n = 2^20 row reads 4 MB and writes 8 MB; pifft_real
+// reads 8 MB and writes 4 MB: 12 MB, 3.6 us at 3.35 TB/s, against ~52 MFLOP of a real FFT
+// (0.8 us at 67 TFLOP/s).  Bound by bytes.  K3 reads the row once: 0.0751 ms at
+// n = 2^20, R = 59 (247.5 MB).
 //
-// Layouts differ from the Pallas kernels where that removes a transpose: K1 reads the
-// pass-A output k1-major (R, A, B), so its slab is contiguous; K2 writes k1-major
-// (R, A, B), so the inverse pass A is a plain matmul.  The spectrum layout (R, Bh, A, Bl)
-// is the JAX package's, bin for bin.
-//
-// K3 replaces pallas_fft.py:419 (_quad_kernel) behind pfft_quad (pallas_fft.py:515):
-// per mean-centred real row, sum_k w_k |X_k|^2 with the spectrum X never stored whole
-// (pass A subtracts the row mean as it loads the row, so the caller writes no centred
-// copy; the exact DC term stays outside, as in the JAX package).
-// The TPU kernel held the whole row in VMEM; the function's bound on the H100 is the
-// single read of the row, 0.0751 ms at n = 2^20, R = 59 (247.5 MB at 3.35 TB/s).  A
-// block's 227 KB of shared memory cannot hold a 4 MB row, so K3 runs in two phases with
-// the half spectrum as a bounded intermediate, on its own split n = A * B (A = 256,
-// B = 2^12 at n = 2^20; _quad_plan in ops/perm_fft.py), bins k = k1 + A*k2:
-//   quad_pass_a_kernel : pass A as a length-A FFT (A = A1 * A2, radix-2 butterflies in
-//                        registers, one exchange through shared memory) on tiles of
-//                        W = 4096 / A columns; the row is read once, and only the slabs
-//                        k1 = 0..A/2 are written (complex, (R, A/2+1, B)): for real input
-//                        slab A-k1 is the conjugate mirror of slab k1.
-//   quad_slab_kernel   : per (row, k1 <= A/2) block, tw 1 (w_n^{k1 b}) on the load, then
-//                        the length-B DFT of the slab as Stockham radix-16 passes (one
-//                        radix 2/4/8 pass first where log2 B is not a multiple of 4): 16
-//                        values a thread in registers, 2 exchanges through shared memory
-//                        at B = 2^12 (padded one slot in 16 against bank conflicts), then
-//                        sum_k2 w'[k1, k2] |Z[k2]|^2 straight from registers.  w' is the
-//                        folded weight w_k + w_{n-k} (1 <= k1 < A/2) or w_k (the
-//                        self-mirrored slabs 0 and A/2), gathered by the wrapper in
-//                        natural k2 order so the read is coalesced.  A 32 KB slab leaves
-//                        room for four blocks an SM, so one block's loads overlap
-//                        another's butterflies.
-// At n = 2^20, R = 59 the two phases move the row once (247.5 MB) and the half spectrum
-// twice (2 x 249.4 MB): 0.75 GB, 0.223 ms at 3.35 TB/s, ~3x the fused bound; the FFT
-// FLOPs (~5 n log2 n / 2 a row) are far below the byte time.  The first design ran pass
-// A inside a slab block of _plan's 2^14 values as a direct length-64 DFT: every row
-// crossed L2 64 times (15.8 GB a launch), it cost 4*A*n FLOP a row, and a 128 KB slab
-// allowed one block an SM: 2.21 ms, behind torch.fft's 2.08 ms.  Each block writes one
-// partial sum per (row, k1), reduced in a fixed order: no atomics, deterministic.
+// Design.  A block's 227 KB of shared memory cannot hold a 4 MB row, so every op is two
+// launches with a (R, A, B) or (R, A/2+1, B) complex scratch between them (8 MB at
+// n = 2^20, R = 1: it stays in the 50 MB L2):
+//   pass_a_kernel<A, A1, in, out> : pass A as a length-A FFT (A = A1 * A2, radix-2
+//        butterflies in registers, one exchange through a 32 KB tile) on tiles of
+//        W = 4096 / A columns; the rows are read once.  Input real float32 (K1; K3 also
+//        subtracts the row mean as it loads) or interleaved complex64 (K1 on complex rows,
+//        K2 on its scratch).  Output all A slabs (K1), the half k1 = 0..A/2 (K3: for real
+//        rows slab A - k1 is the conjugate mirror of slab k1), or the real part scaled by
+//        1/n in natural order (K2).
+//   slab kernels : one block per (row, k1), B/16 threads (256 at B = 2^12), the length-B
+//        DFT of the slab as Stockham radix-16 passes (one radix 2/4/8 pass first where
+//        log2 B is not a multiple of 4): 16 values a thread in registers, exchanges through
+//        shared memory padded one slot in 16 against bank conflicts; twiddles from
+//        float64-built two-level tables, w_B^e = lo[e mod 128] * hi[e / 128].  A 32 KB slab
+//        leaves room for several blocks an SM, so one block's loads overlap another's
+//        butterflies, and at R = 1 there are A = 256 blocks for the 132 SMs.
+//     pfft_slab_kernel  : tw 1 on the load; the last pass goes from registers into shared
+//        memory as G rows of 129 slots (one run and a pad slot each, so neither the
+//        transposing store nor the reads of a run conflict), then out as 1 KB runs.
+//     pifft_slab_kernel : the slab's G runs in through the same 129-slot rows, conjugated;
+//        the first pass reads them from there; tw 1 on the last pass's registers, which go
+//        to the scratch row as natural b.
+//     quad_slab_kernel  : tw 1 on the load, then sum_k2 w'[k1, k2] |Z[k2]|^2 straight from
+//        the last pass's registers.  w' is the folded weight w_k + w_{n-k}
+//        (1 <= k1 < A/2) or w_k (the self-mirrored slabs 0 and A/2), gathered by the wrapper
+//        in natural k2 order so the read is coalesced; one partial sum per (row, k1),
+//        reduced in a fixed order: no atomics, deterministic.
+// Cost against the bound: K1 and K2 move the row's 12 MB plus the scratch twice (16 MB at
+// n = 2^20, R = 1, from L2); the FFT FLOPs are far below the byte time.  At R = 1 each
+// launch is a single wave, so their fixed costs (launch, ramp, tail) weigh as much as the
+// bytes.  K3 moves the row once and the half spectrum twice: 0.75 GB, 0.223 ms at
+// 3.35 TB/s at R = 59, ~3x its fused bound.
 //
 // Every entry point returns cudaGetLastError() (or the first failing CUDA call); the
 // Python wrapper raises when it is not 0.
@@ -71,155 +70,9 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
-
-__device__ __forceinline__ int bitrev(int i, int log_len) {
-  return log_len == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - log_len));
-}
-
-// Radix-2 stages of a length-L (L = 2^log_len) DFT along one axis of the slab, for all
-// 2^log_lines lines at once.  Element i of line q lives at s[q*line_stride + i*elem_stride].
-// tw[k] = w_L^k for k < L/2 (sign of the transform's direction), already in shared memory.
-// kDIT: bit-reversed input, natural output.  Otherwise (DIF): natural in, bit-reversed out.
-// kLineFast: consecutive threads take consecutive lines (use when line_stride == 1).
-template <bool kDIT, bool kLineFast>
-__device__ void fft_axis(float2* s, const float2* tw, int log_len, int log_lines,
-                         int line_stride, int elem_stride) {
-  const int log_half = log_len - 1;
-  const int nbf = log_len > 0 ? (1 << (log_half + log_lines)) : 0;
-  for (int st = 0; st < log_len; ++st) {
-    const int lh = kDIT ? st : (log_half - st);   // butterfly span h = 2^lh
-    const int h = 1 << lh;
-    const int tw_shift = log_half - lh;           // w_{2h}^p = w_L^{p * L/(2h)}
-    for (int t = threadIdx.x; t < nbf; t += blockDim.x) {
-      int q, b;
-      if (kLineFast) {
-        q = t & ((1 << log_lines) - 1);
-        b = t >> log_lines;
-      } else {
-        b = t & ((1 << log_half) - 1);
-        q = t >> log_half;
-      }
-      const int p = b & (h - 1);
-      const int i0 = ((b >> lh) << (lh + 1)) + p;
-      float2* a0 = s + q * line_stride + i0 * elem_stride;
-      float2* a1 = a0 + h * elem_stride;
-      const float2 w = tw[p << tw_shift];
-      const float2 u = *a0;
-      const float2 v = *a1;
-      if (kDIT) {
-        const float2 vw = cmul(v, w);
-        *a0 = make_float2(u.x + vw.x, u.y + vw.y);
-        *a1 = make_float2(u.x - vw.x, u.y - vw.y);
-      } else {
-        *a0 = make_float2(u.x + v.x, u.y + v.y);
-        *a1 = cmul(make_float2(u.x - v.x, u.y - v.y), w);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-struct Tables {
-  const float* t1r;  // (A, Bh)
-  const float* t1i;
-  const float* t2r;  // (A, Bl)
-  const float* t2i;
-  const float* t3r;  // (Bh, Bl)
-  const float* t3i;
-  const float2* twh;  // (max(Bh/2, 1),) w_Bh^k
-  const float2* twl;  // (max(Bl/2, 1),) w_Bl^k
-};
-
-__device__ __forceinline__ void load_twiddles(const Tables& t, float2* sh_twh, float2* sh_twl,
-                                              int log_bh, int log_bl) {
-  for (int i = threadIdx.x; i < ((1 << log_bh) >> 1); i += blockDim.x) sh_twh[i] = t.twh[i];
-  for (int i = threadIdx.x; i < ((1 << log_bl) >> 1); i += blockDim.x) sh_twl[i] = t.twl[i];
-}
-
-__device__ __forceinline__ float2 twiddle1(const Tables& t, int k1, int bh, int bl,
-                                           int log_bh, int log_bl, float2 y) {
-  const int i1 = (k1 << log_bh) + bh;
-  const int i2 = (k1 << log_bl) + bl;
-  y = cmul(y, make_float2(__ldg(t.t1r + i1), __ldg(t.t1i + i1)));
-  return cmul(y, make_float2(__ldg(t.t2r + i2), __ldg(t.t2i + i2)));
-}
-
-__device__ __forceinline__ void twiddle3(const Tables& t, float2* slab, int B) {
-  for (int i = threadIdx.x; i < B; i += blockDim.x)
-    slab[i] = cmul(slab[i], make_float2(__ldg(t.t3r + i), __ldg(t.t3i + i)));
-  __syncthreads();
-}
-
-// Forward pass B of the slab already in shared memory (bh-bit-reversed, tw 1 applied):
-// DFT_Bh (DIT), tw 2, DFT_Bl (DIF).  Leaves O[kh][bitrev(kl)] in the slab.
-__device__ __forceinline__ void forward_stages(const Tables& t, float2* slab, const float2* sh_twh,
-                                               const float2* sh_twl, int log_bh, int log_bl) {
-  const int Bl = 1 << log_bl;
-  fft_axis<true, true>(slab, sh_twh, log_bh, log_bl, 1, Bl);
-  twiddle3(t, slab, 1 << (log_bh + log_bl));
-  fft_axis<false, false>(slab, sh_twl, log_bl, log_bh, Bl, 1);
-}
-
-template <bool kInverse>
-__global__ void __launch_bounds__(kThreads)
-passb_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
-             float* __restrict__ out_re, float* __restrict__ out_im, Tables t,
-             int A, int log_bh, int log_bl) {
-  extern __shared__ float2 smem[];
-  const int Bh = 1 << log_bh, Bl = 1 << log_bl, B = Bh * Bl;
-  float2* slab = smem;
-  float2* sh_twh = slab + B;
-  float2* sh_twl = sh_twh + max(Bh >> 1, 1);
-  const int k1 = blockIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.y) * A * B;
-  load_twiddles(t, sh_twh, sh_twl, log_bh, log_bl);
-  if (!kInverse) {
-    // in: pass-A output, k1-major (R, A, B): this block's slab is contiguous
-    const size_t base = row + static_cast<size_t>(k1) * B;
-    for (int i = threadIdx.x; i < B; i += blockDim.x) {
-      const int bh = i >> log_bl, bl = i & (Bl - 1);
-      const float2 y = make_float2(in_re[base + i], in_im[base + i]);
-      slab[(bitrev(bh, log_bh) << log_bl) + bl] = twiddle1(t, k1, bh, bl, log_bh, log_bl, y);
-    }
-    __syncthreads();
-    forward_stages(t, slab, sh_twh, sh_twl, log_bh, log_bl);
-    // out: permuted spectrum (R, Bh, A, Bl)
-    for (int i = threadIdx.x; i < B; i += blockDim.x) {
-      const int kh = i >> log_bl, kl = i & (Bl - 1);
-      const float2 z = slab[(kh << log_bl) + bitrev(kl, log_bl)];
-      const size_t o = row + (static_cast<size_t>(kh) * A + k1) * Bl + kl;
-      out_re[o] = z.x;
-      out_im[o] = z.y;
-    }
-  } else {
-    // in: permuted spectrum (R, Bh, A, Bl), stored kl-bit-reversed for the DIT
-    for (int i = threadIdx.x; i < B; i += blockDim.x) {
-      const int kh = i >> log_bl, kl = i & (Bl - 1);
-      const size_t o = row + (static_cast<size_t>(kh) * A + k1) * Bl + kl;
-      slab[(kh << log_bl) + bitrev(kl, log_bl)] = make_float2(in_re[o], in_im[o]);
-    }
-    __syncthreads();
-    fft_axis<true, false>(slab, sh_twl, log_bl, log_bh, Bl, 1);   // undo DFT_Bl
-    twiddle3(t, slab, B);                                          // undo tw 2
-    fft_axis<false, true>(slab, sh_twh, log_bh, log_bl, 1, Bl);   // undo DFT_Bh
-    // undo tw 1; out: k1-major (R, A, B) for the inverse pass A matmul
-    const size_t base = row + static_cast<size_t>(k1) * B;
-    for (int i = threadIdx.x; i < B; i += blockDim.x) {
-      const int bh = i >> log_bl, bl = i & (Bl - 1);
-      const float2 y = twiddle1(t, k1, bh, bl, log_bh, log_bl,
-                                slab[(bitrev(bh, log_bh) << log_bl) + bl]);
-      out_re[base + i] = y.x;
-      out_im[base + i] = y.y;
-    }
-  }
-}
-
-// ---- K3 -------------------------------------------------------------------------------
 
 // w_L^x = exp(-2 pi i x / L) for L <= 16 and 0 <= x < L/2, as compile-time constants
 template <int L>
@@ -273,40 +126,51 @@ __device__ __forceinline__ void dft_reg(float2 (&v)[L]) {
   DifStages<L, L / 2>::run(v);
 }
 
+// ---- pass A -----------------------------------------------------------------------------
+
 constexpr int kPassAThreads = 256;
 constexpr int kPassATile = 4096;   // complex values a block holds: A rows x W columns
 
-// Phase 1: pass A of real rows as an FFT, A = A1 * A2, a = A2*a1 + a2, k1 = p + A1*q:
-//   U[a2, p]      = sum_a1 x[a, b] w_A1^{a1 p}          (registers)
-//   Y[p + A1 q, b] = sum_a2 U[a2, p] w_A^{a2 p} w_A2^{a2 q}  (after one exchange)
-// for the W = 4096/A columns b0.. of row blockIdx.y, x = xr - mean[r]; only k1 <= A/2
-// is written, to y (R, A/2+1, B) complex.  twa[j] = w_A^j.
-template <int A, int A1>
+// what pass_a_kernel writes: slabs k1 = 0..A/2 (K3), all A slabs (K1), or the real part
+// times `scale` as float32 in natural order (K2)
+enum PassAOut { kOutHalf, kOutAll, kOutReal };
+
+// Pass A as an FFT, A = A1 * A2, a = A2*a1 + a2, k1 = p + A1*q:
+//   U[a2, p]       = sum_a1 x[a, b] w_A1^{a1 p}                (registers)
+//   Y[p + A1 q, b] = sum_a2 U[a2, p] w_A^{a2 p} w_A2^{a2 q}    (after one exchange)
+// for the W = 4096/A columns b0.. of row blockIdx.y.  x is real float32 (minus mean[r] when
+// `mean` is given) or, with kComplexIn, interleaved complex64.  twa[j] = w_A^j.
+template <int A, int A1, bool kComplexIn, int kOut>
 __global__ void __launch_bounds__(kPassAThreads)
-quad_pass_a_kernel(const float* __restrict__ xr, const float* __restrict__ mean,
-                   const float2* __restrict__ twa, float2* __restrict__ y, int log_b) {
-  constexpr int A2 = A / A1, W = kPassATile / A, H = A / 2 + 1;
+pass_a_kernel(const float* __restrict__ x, const float* __restrict__ mean,
+              const float2* __restrict__ twa, void* __restrict__ y, int log_b, float scale) {
+  constexpr int A2 = A / A1, W = kPassATile / A, H = kOut == kOutHalf ? A / 2 + 1 : A;
   __shared__ float2 u[kPassATile];   // u[(a2 * A1 + p) * W + c]
   __shared__ float2 sh_tw[A];
   const int b0 = blockIdx.x * W;
   const size_t r = blockIdx.y;
   for (int i = threadIdx.x; i < A; i += blockDim.x) sh_tw[i] = twa[i];
   __syncthreads();
-  const float* x = xr + (r * A << log_b) + b0;
-  const float m = mean[r];
+  const size_t in0 = (r * A << log_b) + b0;
+  const float m = mean ? mean[r] : 0.f;
   for (int t = threadIdx.x; t < A2 * W; t += blockDim.x) {
     const int c = t % W, a2 = t / W;
     float2 v[A1];
 #pragma unroll
-    for (int a1 = 0; a1 < A1; ++a1)
-      v[a1] = make_float2(__ldg(x + (static_cast<size_t>(A2 * a1 + a2) << log_b) + c) - m, 0.f);
+    for (int a1 = 0; a1 < A1; ++a1) {
+      const size_t o = in0 + (static_cast<size_t>(A2 * a1 + a2) << log_b) + c;
+      if constexpr (kComplexIn)
+        v[a1] = __ldg(reinterpret_cast<const float2*>(x) + o);
+      else
+        v[a1] = make_float2(__ldg(x + o) - m, 0.f);
+    }
     dft_reg<A1>(v);
 #pragma unroll
     for (int p = 0; p < A1; ++p)
       u[(a2 * A1 + p) * W + c] = cmul(v[brev_c<A1>(p)], sh_tw[a2 * p]);
   }
   __syncthreads();
-  float2* yr = y + (r * H << log_b) + b0;
+  const size_t out0 = (r * H << log_b) + b0;
   for (int t = threadIdx.x; t < A1 * W; t += blockDim.x) {
     const int c = t % W, p = t / W;
     float2 v[A2];
@@ -316,36 +180,58 @@ quad_pass_a_kernel(const float* __restrict__ xr, const float* __restrict__ mean,
 #pragma unroll
     for (int q = 0; q < A2; ++q) {
       const int k = p + A1 * q;
-      if (k <= A / 2) yr[(static_cast<size_t>(k) << log_b) + c] = v[brev_c<A2>(q)];
+      const size_t o = out0 + (static_cast<size_t>(k) << log_b) + c;
+      if constexpr (kOut == kOutReal)
+        reinterpret_cast<float*>(y)[o] = v[brev_c<A2>(q)].x * scale;
+      else if (kOut == kOutAll || k <= A / 2)
+        reinterpret_cast<float2*>(y)[o] = v[brev_c<A2>(q)];
     }
   }
 }
 
-constexpr int kQuadLogBl = 7, kQuadBl = 1 << kQuadLogBl;   // tw tables split b = bh*128 + bl
+// ---- slab DFT ---------------------------------------------------------------------------
+
+constexpr int kLogBl = 7, kBl = 1 << kLogBl;     // tw tables split b = bh*128 + bl
+constexpr int kLogRun = 7, kRun = 1 << kLogRun;  // _plan's Bl: a run of the permuted output
+constexpr int kRunSlots = kRun + 1;              // a run's row in shared memory, padded
 
 // slab index in shared memory, one pad slot every 16 (strided radix-16 stores would
 // otherwise hit one bank)
 __host__ __device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
 
-// Phase 2, first Stockham pass (stride Ns = 1), in two steps so that the slab's loads
-// from device memory overlap the staging of the tables: load_first_pass reads radix-R
-// groups v[i][q] = Y[j + q*N/R] (j = threadIdx.x + i*blockDim.x, 16/R groups a thread);
-// first_pass applies tw 1 (w_n^{k1 b} = t1[b / 128] * t2[b mod 128]), the radix-R DFT,
-// and stores into shared memory.
-template <int R>
-__device__ __forceinline__ void load_first_pass(const float2* __restrict__ yk,
-                                                float2 (&v)[16 / R][R], int log_b) {
-  const int NR = (1 << log_b) / R;
-#pragma unroll
-  for (int i = 0; i < 16 / R; ++i) {
-    const int j = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int q = 0; q < R; ++q)
-      if (j < NR) v[i][q] = yk[j + q * NR];
+// shared-memory slot of bin k2 = g + G*kl of the slab held as G padded runs
+__device__ __forceinline__ int run_slot(int k2, int log_g) {
+  return (k2 & ((1 << log_g) - 1)) * kRunSlots + (k2 >> log_g);
+}
+
+// offset in the permuted spectrum row of run g of slab k1 (kh = k1h + c*g, k1' = k1 mod A0)
+__device__ __forceinline__ int run_offset(int k1, int g, int log_a0, int log_c) {
+  const int kh = (k1 >> log_a0) + (g << log_c);
+  return ((kh << log_a0) + (k1 & ((1 << log_a0) - 1))) << kLogRun;
+}
+
+// the tables of slab k1 into shared memory: w_B^j (j < 128) and w_B^{128 j} (j < B/128);
+// tw 1 as t1[bh] = w_n^{k1 128 bh}, t2[bl] = w_n^{k1 bl}
+__device__ __forceinline__ void stage_tables(float2* t1, float2* t2, float2* lo, float2* hi,
+                                             const float2* __restrict__ qt1,
+                                             const float2* __restrict__ qt2,
+                                             const float2* __restrict__ qtw, int k1,
+                                             int log_b) {
+  const int Bh = 1 << (log_b - kLogBl);
+  for (int i = threadIdx.x; i < kBl; i += blockDim.x) {
+    lo[i] = qtw[i];
+    t2[i] = qt2[k1 * kBl + i];
+  }
+  for (int i = threadIdx.x; i < Bh; i += blockDim.x) {
+    hi[i] = qtw[kBl + i];
+    t1[i] = qt1[k1 * Bh + i];
   }
 }
 
-template <int R>
+// First Stockham pass (stride Ns = 1), radix R, on groups v[i][q] = Y[j + q*N/R]
+// (j = threadIdx.x + i*blockDim.x, 16/R groups a thread): tw 1 when kTw1, the radix-R DFT,
+// the store into shared memory.
+template <int R, bool kTw1>
 __device__ __forceinline__ void first_pass(float2 (&v)[16 / R][R], float2* s, const float2* t1,
                                            const float2* t2, int log_b) {
   const int NR = (1 << log_b) / R;
@@ -353,10 +239,12 @@ __device__ __forceinline__ void first_pass(float2 (&v)[16 / R][R], float2* s, co
   for (int i = 0; i < 16 / R; ++i) {
     const int j = threadIdx.x + i * blockDim.x;
     if (j < NR) {
+      if (kTw1) {
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int b = j + q * NR;
-        v[i][q] = cmul(cmul(v[i][q], t1[b >> kQuadLogBl]), t2[b & (kQuadBl - 1)]);
+        for (int q = 0; q < R; ++q) {
+          const int b = j + q * NR;
+          v[i][q] = cmul(cmul(v[i][q], t1[b >> kLogBl]), t2[b & (kBl - 1)]);
+        }
       }
       dft_reg<R>(v[i]);
 #pragma unroll
@@ -365,75 +253,112 @@ __device__ __forceinline__ void first_pass(float2 (&v)[16 / R][R], float2* s, co
   }
 }
 
+// The first pass of a forward slab (K1, K3) read straight from device memory, in two
+// steps so that the loads overlap the staging of the tables.
 template <int R>
+__device__ __forceinline__ void first_pass_global(const float2* __restrict__ yk, float2* s,
+                                                  float2* t1, float2* t2, float2* lo,
+                                                  float2* hi, const float2* __restrict__ qt1,
+                                                  const float2* __restrict__ qt2,
+                                                  const float2* __restrict__ qtw, int k1,
+                                                  int log_b) {
+  const int NR = (1 << log_b) / R;
+  float2 v[16 / R][R];
+#pragma unroll
+  for (int i = 0; i < 16 / R; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (j < NR) v[i][q] = yk[j + q * NR];
+  }
+  stage_tables(t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b);
+  __syncthreads();
+  first_pass<R, true>(v, s, t1, t2, log_b);
+}
+
 __device__ __forceinline__ void slab_first_pass(const float2* __restrict__ yk, float2* s,
                                                 float2* t1, float2* t2, float2* lo, float2* hi,
                                                 const float2* __restrict__ qt1,
                                                 const float2* __restrict__ qt2,
                                                 const float2* __restrict__ qtw, int k1,
                                                 int log_b) {
-  const int Bh = 1 << (log_b - kQuadLogBl);
-  float2 v[16 / R][R];
-  load_first_pass<R>(yk, v, log_b);
-  for (int i = threadIdx.x; i < kQuadBl; i += blockDim.x) {
-    lo[i] = qtw[i];
-    t2[i] = qt2[k1 * kQuadBl + i];
+  switch (log_b & 3) {
+    case 0: first_pass_global<16>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    case 1: first_pass_global<2>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    case 2: first_pass_global<4>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
+    default: first_pass_global<8>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
   }
-  for (int i = threadIdx.x; i < Bh; i += blockDim.x) {
-    hi[i] = qtw[kQuadBl + i];
-    t1[i] = qt1[k1 * Bh + i];
+}
+
+// The first pass of K2's slab, read from the G padded runs in shared memory (no tw 1).
+template <int R>
+__device__ __forceinline__ void first_pass_runs(float2* s, int log_b) {
+  const int NR = (1 << log_b) / R, log_g = log_b - kLogRun;
+  float2 v[16 / R][R];
+#pragma unroll
+  for (int i = 0; i < 16 / R; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (j < NR) v[i][q] = s[run_slot(j + q * NR, log_g)];
   }
   __syncthreads();
-  first_pass<R>(v, s, t1, t2, log_b);
+  first_pass<R, false>(v, s, nullptr, nullptr, log_b);
+}
+
+__device__ __forceinline__ void slab_first_pass_runs(float2* s, int log_b) {
+  switch (log_b & 3) {
+    case 0: first_pass_runs<16>(s, log_b); break;
+    case 1: first_pass_runs<2>(s, log_b); break;
+    case 2: first_pass_runs<4>(s, log_b); break;
+    default: first_pass_runs<8>(s, log_b); break;
+  }
 }
 
 // w_B^e for 0 <= e < B from the two-level table: lo[e mod 128] * hi[e / 128]
 __device__ __forceinline__ float2 tw_b(const float2* lo, const float2* hi, int e) {
-  return cmul(lo[e & (kQuadBl - 1)], hi[e >> kQuadLogBl]);
+  return cmul(lo[e & (kBl - 1)], hi[e >> kLogBl]);
 }
 
-// Phase 2, a radix-16 Stockham pass at stride Ns = 2^log_ns > 1, in place in shared
-// memory, twiddles w_B^{q k B / (16 Ns)}.  The last pass (Ns = B/16)
-// leaves X[j + q*Ns] in registers and returns this thread's
-// sum_q wf[j + q*Ns] |X[j + q*Ns]|^2 in a fixed order.
-template <bool kLast>
-__device__ __forceinline__ float slab_pass16(float2* s, const float2* lo, const float2* hi,
-                                             const float* __restrict__ wf, int log_ns,
-                                             int log_b) {
+// A radix-16 Stockham pass at stride Ns = 2^log_ns > 1 of the slab in shared memory, into
+// registers (threads j < B/16): twiddles w_B^{q k B / (16 Ns)}, k = j mod Ns; on return
+// v[brev_c<16>(q)] is the pass's output at j + q*Ns (Stockham order base + q*Ns, with
+// base = (j / Ns) * 16 Ns + j mod Ns, which is j in the last pass, Ns = B/16).
+__device__ __forceinline__ void pass16_regs(const float2* s, const float2* lo, const float2* hi,
+                                            int log_ns, int log_b, float2 (&v)[16]) {
   const int NR = 1 << (log_b - 4), Ns = 1 << log_ns;
   const int j = threadIdx.x;
-  const bool active = j < NR;
-  float2 v[16];
-  if (active) {
 #pragma unroll
-    for (int q = 0; q < 16; ++q) v[q] = s[pad16(j + q * NR)];
-    // w^q for w = w_B^{k B / (16 Ns)}, k = j mod Ns: w, w^2, w^4, w^8 from the tables,
-    // the rest as products of those (at most three a twiddle)
-    const int e1 = (j & (Ns - 1)) << (log_b - log_ns - 4);
-    float2 w[16];
-    w[1] = tw_b(lo, hi, e1);
-    w[2] = tw_b(lo, hi, 2 * e1);
-    w[4] = tw_b(lo, hi, 4 * e1);
-    w[8] = tw_b(lo, hi, 8 * e1);
-    w[3] = cmul(w[1], w[2]);
+  for (int q = 0; q < 16; ++q) v[q] = s[pad16(j + q * NR)];
+  // w^q for w = w_B^{k B / (16 Ns)}: w, w^2, w^4, w^8 from the tables, the rest as
+  // products of those (at most three a twiddle)
+  const int e1 = (j & (Ns - 1)) << (log_b - log_ns - 4);
+  float2 w[16];
+  w[1] = tw_b(lo, hi, e1);
+  w[2] = tw_b(lo, hi, 2 * e1);
+  w[4] = tw_b(lo, hi, 4 * e1);
+  w[8] = tw_b(lo, hi, 8 * e1);
+  w[3] = cmul(w[1], w[2]);
 #pragma unroll
-    for (int q = 5; q < 8; ++q) w[q] = cmul(w[4], w[q - 4]);
+  for (int q = 5; q < 8; ++q) w[q] = cmul(w[4], w[q - 4]);
 #pragma unroll
-    for (int q = 9; q < 16; ++q) w[q] = cmul(w[8], w[q - 8]);
+  for (int q = 9; q < 16; ++q) w[q] = cmul(w[8], w[q - 8]);
 #pragma unroll
-    for (int q = 1; q < 16; ++q) v[q] = cmul(v[q], w[q]);
-    dft_reg<16>(v);
-  }
-  float acc = 0.f;
-  if (kLast) {
-    if (active) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const float2 z = v[brev_c<16>(q)];
-        acc = fmaf(__ldg(wf + j + q * Ns), z.x * z.x + z.y * z.y, acc);
-      }
-    }
-  } else {
+  for (int q = 1; q < 16; ++q) v[q] = cmul(v[q], w[q]);
+  dft_reg<16>(v);
+}
+
+// Every radix-16 pass after the first but the last, in place in shared memory; returns
+// log2 of the last pass's stride (B/16).
+__device__ __forceinline__ int slab_middle_passes(float2* s, const float2* lo, const float2* hi,
+                                                  int log_b) {
+  const int j = threadIdx.x;
+  const bool active = j < (1 << (log_b - 4));
+  int log_ns = (log_b & 3) ? (log_b & 3) : 4;
+  for (; log_ns + 4 < log_b; log_ns += 4) {
+    const int Ns = 1 << log_ns;
+    float2 v[16];
+    if (active) pass16_regs(s, lo, hi, log_ns, log_b, v);
     __syncthreads();
     if (active) {
       const int base = ((j >> log_ns) << (log_ns + 4)) + (j & (Ns - 1));
@@ -442,44 +367,133 @@ __device__ __forceinline__ float slab_pass16(float2* s, const float2* lo, const 
     }
     __syncthreads();
   }
-  return acc;
+  return log_ns;
 }
 
 constexpr int kSlabMaxThreads = 1024;   // B / 16 at B = 2^14
 
-// Phase 2: one block per (k1 = blockIdx.x <= A/2, row blockIdx.y) slab of the half
-// spectrum; Z = DFT_B(tw 1 * Y[k1, :]) in natural k2 order, where bin k1 + A*k2 of the
-// row's spectrum is Z[k2]; partial[r, k1] = sum_k2 wf[k1, k2] |Z[k2]|^2.
+// dynamic shared memory of a slab block: the padded slab, lo, hi, t1, t2 (+ `extra` bytes)
+size_t slab_smem(int log_b, size_t extra) {
+  const int Bh = 1 << (log_b - kLogBl);
+  return static_cast<size_t>(pad16(1 << log_b) + 2 * kBl + 2 * Bh) * sizeof(float2) + extra;
+}
+
+int slab_threads(int log_b) { return (1 << (log_b - 4)) > 32 ? (1 << (log_b - 4)) : 32; }
+
+// K1: one block per (k1 = blockIdx.x < A, row blockIdx.y); Z = DFT_B(tw 1 * Y[k1, :]) and
+// bin k1 + A*k2 = Z[k2] to its place in the permuted spectrum X (R, n), run by run.
+__global__ void __launch_bounds__(kSlabMaxThreads)
+pfft_slab_kernel(const float2* __restrict__ y, const float2* __restrict__ qt1,
+                 const float2* __restrict__ qt2, const float2* __restrict__ qtw,
+                 float2* __restrict__ X, int A, int log_a0, int log_c, int log_b) {
+  extern __shared__ float2 smem[];
+  const int B = 1 << log_b, Bh = B >> kLogBl, log_g = log_b - kLogRun;
+  const int k1 = blockIdx.x, r = blockIdx.y, j = threadIdx.x;
+  float2* s = smem;
+  float2* lo = s + pad16(B);
+  float2* hi = lo + kBl;
+  float2* t1 = hi + Bh;
+  float2* t2 = t1 + Bh;
+  slab_first_pass(y + ((static_cast<size_t>(r) * A + k1) << log_b), s, t1, t2, lo, hi, qt1,
+                  qt2, qtw, k1, log_b);
+  __syncthreads();
+  const int log_ns = slab_middle_passes(s, lo, hi, log_b);
+  const bool active = j < (B >> 4);
+  float2 v[16];
+  if (active) pass16_regs(s, lo, hi, log_ns, log_b, v);
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) s[run_slot(j + (q << log_ns), log_g)] = v[brev_c<16>(q)];
+  }
+  __syncthreads();
+  float2* Xr = X + (static_cast<size_t>(r) * A << log_b);
+  for (int i = j; i < B; i += blockDim.x) {
+    const int g = i >> kLogRun, kl = i & (kRun - 1);
+    Xr[run_offset(k1, g, log_a0, log_c) + kl] = s[g * kRunSlots + kl];
+  }
+}
+
+// K2: one block per (k1 = blockIdx.x < A, row blockIdx.y); the slab's bins conj X[k1 + A k2]
+// from the permuted spectrum X (R, n), V = DFT_B of them, y[r, k1, b] = w_n^{k1 b} V[b].
+__global__ void __launch_bounds__(kSlabMaxThreads)
+pifft_slab_kernel(const float2* __restrict__ X, const float2* __restrict__ qt1,
+                  const float2* __restrict__ qt2, const float2* __restrict__ qtw,
+                  float2* __restrict__ y, int A, int log_a0, int log_c, int log_b) {
+  extern __shared__ float2 smem[];
+  const int B = 1 << log_b, Bh = B >> kLogBl;
+  const int k1 = blockIdx.x, r = blockIdx.y, j = threadIdx.x;
+  float2* s = smem;
+  float2* lo = s + pad16(B);
+  float2* hi = lo + kBl;
+  float2* t1 = hi + Bh;
+  float2* t2 = t1 + Bh;
+  // the slab's runs: all 16 loads of a thread in flight together (blockDim >= B/16), the
+  // tables staged meanwhile, then conjugated into the padded rows
+  const float2* Xr = X + (static_cast<size_t>(r) * A << log_b);
+  float2 z[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int i = j + u * blockDim.x;
+    if (i < B) z[u] = __ldg(Xr + run_offset(k1, i >> kLogRun, log_a0, log_c) + (i & (kRun - 1)));
+  }
+  stage_tables(t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b);
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int i = j + u * blockDim.x;
+    if (i < B) s[(i >> kLogRun) * kRunSlots + (i & (kRun - 1))] = make_float2(z[u].x, -z[u].y);
+  }
+  __syncthreads();
+  slab_first_pass_runs(s, log_b);
+  __syncthreads();
+  const int log_ns = slab_middle_passes(s, lo, hi, log_b);
+  if (j < (B >> 4)) {
+    float2 v[16];
+    pass16_regs(s, lo, hi, log_ns, log_b, v);
+    float2* yk = y + ((static_cast<size_t>(r) * A + k1) << log_b);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int b = j + (q << log_ns);
+      yk[b] = cmul(cmul(v[brev_c<16>(q)], t1[b >> kLogBl]), t2[b & (kBl - 1)]);
+    }
+  }
+}
+
+// K3: one block per (k1 = blockIdx.x <= A/2, row blockIdx.y) slab of the half spectrum;
+// Z = DFT_B(tw 1 * Y[k1, :]) in natural k2 order, where bin k1 + A*k2 of the row's spectrum
+// is Z[k2]; partial[r, k1] = sum_k2 wf[k1, k2] |Z[k2]|^2.
 __global__ void __launch_bounds__(kSlabMaxThreads)
 quad_slab_kernel(const float2* __restrict__ y, const float2* __restrict__ qt1,
                  const float2* __restrict__ qt2, const float2* __restrict__ qtw,
                  const float* __restrict__ wf, float* __restrict__ partial, int A, int log_b) {
   extern __shared__ float2 smem[];
-  const int Bh = 1 << (log_b - kQuadLogBl);
-  const int H = A / 2 + 1, k1 = blockIdx.x, r = blockIdx.y;
+  const int Bh = 1 << (log_b - kLogBl);
+  const int H = A / 2 + 1, k1 = blockIdx.x, r = blockIdx.y, j = threadIdx.x;
   float2* s = smem;
   float2* lo = s + pad16(1 << log_b);
-  float2* hi = lo + kQuadBl;
+  float2* hi = lo + kBl;
   float2* t1 = hi + Bh;
   float2* t2 = t1 + Bh;
-  float* red = reinterpret_cast<float*>(t2 + kQuadBl);
-  const float2* yk = y + ((static_cast<size_t>(r) * H + k1) << log_b);
-  const int r0 = log_b & 3;
-  switch (r0) {
-    case 0: slab_first_pass<16>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
-    case 1: slab_first_pass<2>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
-    case 2: slab_first_pass<4>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
-    default: slab_first_pass<8>(yk, s, t1, t2, lo, hi, qt1, qt2, qtw, k1, log_b); break;
-  }
+  float* red = reinterpret_cast<float*>(t2 + kBl);
+  slab_first_pass(y + ((static_cast<size_t>(r) * H + k1) << log_b), s, t1, t2, lo, hi, qt1,
+                  qt2, qtw, k1, log_b);
   __syncthreads();
-  int log_ns = r0 ? r0 : 4;
-  for (; log_ns + 4 < log_b; log_ns += 4) slab_pass16<false>(s, lo, hi, nullptr, log_ns, log_b);
-  float acc = slab_pass16<true>(s, lo, hi, wf + (static_cast<size_t>(k1) << log_b), log_ns,
-                                log_b);
+  const int log_ns = slab_middle_passes(s, lo, hi, log_b);
+  float acc = 0.f;
+  if (j < (1 << (log_b - 4))) {
+    float2 v[16];
+    pass16_regs(s, lo, hi, log_ns, log_b, v);
+    const float* wk = wf + (static_cast<size_t>(k1) << log_b);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float2 z = v[brev_c<16>(q)];
+      acc = fmaf(__ldg(wk + j + (q << log_ns)), z.x * z.x + z.y * z.y, acc);
+    }
+  }
 
   // block sum in a fixed order
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = j >> 5, lane = j & 31;
   if (lane == 0) red[warp] = acc;
   __syncthreads();
   if (warp == 0) {
@@ -490,18 +504,11 @@ quad_slab_kernel(const float2* __restrict__ y, const float2* __restrict__ qt1,
   }
 }
 
-size_t slab_bytes(int log_bh, int log_bl) {
-  const int Bh = 1 << log_bh, Bl = 1 << log_bl;
-  const int twh = Bh > 1 ? Bh >> 1 : 1, twl = Bl > 1 ? Bl >> 1 : 1;
-  return static_cast<size_t>(Bh * Bl + twh + twl) * sizeof(float2);
-}
-
 // Raise a kernel's dynamic shared memory limit once per device (not on every launch,
 // so that launches can be captured in a CUDA graph).  `granted` holds, per device, the
 // largest size set so far.
 constexpr int kMaxDevices = 64;
-size_t g_granted_passb[kMaxDevices], g_granted_passb_inv[kMaxDevices],
-    g_granted_quad[kMaxDevices];
+size_t g_granted_pfft[kMaxDevices], g_granted_pifft[kMaxDevices], g_granted_quad[kMaxDevices];
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
@@ -516,6 +523,41 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
   return e;
 }
 
+template <bool kComplexIn, int kOut>
+cudaError_t launch_pass_a(const float* x, const float* mean, const float* twa, void* y, int R,
+                          int A, int log_b, float scale, cudaStream_t s) {
+  const dim3 grid((1 << log_b) / (kPassATile / A), R);
+  const float2* tw = reinterpret_cast<const float2*>(twa);
+  switch (A) {
+    case 64:
+      pass_a_kernel<64, 8, kComplexIn, kOut><<<grid, kPassAThreads, 0, s>>>(x, mean, tw, y,
+                                                                             log_b, scale);
+      break;
+    case 128:
+      pass_a_kernel<128, 16, kComplexIn, kOut><<<grid, kPassAThreads, 0, s>>>(x, mean, tw, y,
+                                                                               log_b, scale);
+      break;
+    case 256:
+      pass_a_kernel<256, 16, kComplexIn, kOut><<<grid, kPassAThreads, 0, s>>>(x, mean, tw, y,
+                                                                               log_b, scale);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+int ilog2(int v) {
+  int l = 0;
+  while ((1 << (l + 1)) <= v) ++l;
+  return l;
+}
+
+// the splits the kernels take: A in {64, 128, 256} a multiple of A0, 2^7 <= B <= 2^14
+bool valid_split(int A, int A0, int log_b) {
+  return (A == 64 || A == 128 || A == 256) && A0 > 0 && A % A0 == 0 && A / A0 <= 4 &&
+         log_b >= kLogRun && log_b <= 14;
+}
+
 }  // namespace
 
 extern "C" {
@@ -524,52 +566,60 @@ const char* fgp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int fgp_passb(const float* in_re, const float* in_im, float* out_re, float* out_im,
-              const float* t1r, const float* t1i, const float* t2r, const float* t2i,
-              const float* t3r, const float* t3i, const float* twh, const float* twl,
-              int R, int A, int log_bh, int log_bl, int inverse, void* stream) {
-  const Tables t{t1r, t1i, t2r, t2i, t3r, t3i, reinterpret_cast<const float2*>(twh),
-                 reinterpret_cast<const float2*>(twl)};
-  const size_t smem = slab_bytes(log_bh, log_bl);
-  const dim3 grid(A, R);
+// K1: x (R, n) float32, or interleaved complex64 when complex_in; y (R, A, B) complex scratch;
+// X (R, n) complex64, the permuted spectrum of _plan(n) (A0 = 2^log_a0).
+int fgp_pfft(const float* x, int complex_in, const float* twa, const float* qt1,
+             const float* qt2, const float* qtw, float* y, float* X, int R, int A, int log_a0,
+             int log_b, void* stream) {
+  if (!valid_split(A, 1 << log_a0, log_b)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (inverse) {
-    if ((e = allow_smem(passb_kernel<true>, smem, g_granted_passb_inv)) != cudaSuccess) return e;
-    passb_kernel<true><<<grid, kThreads, smem, s>>>(in_re, in_im, out_re, out_im, t, A,
-                                                    log_bh, log_bl);
-  } else {
-    if ((e = allow_smem(passb_kernel<false>, smem, g_granted_passb)) != cudaSuccess) return e;
-    passb_kernel<false><<<grid, kThreads, smem, s>>>(in_re, in_im, out_re, out_im, t, A,
-                                                     log_bh, log_bl);
-  }
+  cudaError_t e = complex_in
+      ? launch_pass_a<true, kOutAll>(x, nullptr, twa, y, R, A, log_b, 1.f, s)
+      : launch_pass_a<false, kOutAll>(x, nullptr, twa, y, R, A, log_b, 1.f, s);
+  if (e != cudaSuccess) return e;
+  const size_t smem = slab_smem(log_b, 0);
+  if ((e = allow_smem(pfft_slab_kernel, smem, g_granted_pfft)) != cudaSuccess) return e;
+  pfft_slab_kernel<<<dim3(A, R), slab_threads(log_b), smem, s>>>(
+      reinterpret_cast<const float2*>(y), reinterpret_cast<const float2*>(qt1),
+      reinterpret_cast<const float2*>(qt2), reinterpret_cast<const float2*>(qtw),
+      reinterpret_cast<float2*>(X), A, log_a0, ilog2(A) - log_a0, log_b);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2: X (R, n) interleaved complex64 in _plan(n)'s permuted order; y (R, A, B) complex
+// scratch; out (R, n) float32, the real part of the inverse, 1/n included.
+int fgp_pifft_real(const float* X, const float* twa, const float* qt1, const float* qt2,
+                   const float* qtw, float* y, float* out, int R, int A, int log_a0, int log_b,
+                   void* stream) {
+  if (!valid_split(A, 1 << log_a0, log_b)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = slab_smem(log_b, 0);
+  cudaError_t e = allow_smem(pifft_slab_kernel, smem, g_granted_pifft);
+  if (e != cudaSuccess) return e;
+  pifft_slab_kernel<<<dim3(A, R), slab_threads(log_b), smem, s>>>(
+      reinterpret_cast<const float2*>(X), reinterpret_cast<const float2*>(qt1),
+      reinterpret_cast<const float2*>(qt2), reinterpret_cast<const float2*>(qtw),
+      reinterpret_cast<float2*>(y), A, log_a0, ilog2(A) - log_a0, log_b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const float inv_n = 1.f / static_cast<float>(static_cast<size_t>(A) << log_b);   // exact
+  return launch_pass_a<true, kOutReal>(y, nullptr, twa, out, R, A, log_b, inv_n, s);
+}
+
+// K3: x (R, n) float32 rows, mean (R,); y (R, A/2+1, B) complex scratch; wf (A/2+1, B)
+// folded weights; partial (R, A/2+1).
 int fgp_quad(const float* x, const float* mean, const float* twa, const float* qt1,
              const float* qt2, const float* qtw, const float* wf, float* y, float* partial,
              int R, int A, int log_b, void* stream) {
-  const int B = 1 << log_b;
+  if (!valid_split(A, A, log_b)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float2* tw_a = reinterpret_cast<const float2*>(twa);
-  float2* y2 = reinterpret_cast<float2*>(y);
-  const dim3 grid_a(B / (kPassATile / A), R);
-  switch (A) {
-    case 64: quad_pass_a_kernel<64, 8><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
-    case 128: quad_pass_a_kernel<128, 16><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
-    case 256: quad_pass_a_kernel<256, 16><<<grid_a, kPassAThreads, 0, s>>>(x, mean, tw_a, y2, log_b); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_pass_a<false, kOutHalf>(x, mean, twa, y, R, A, log_b, 1.f, s);
   if (e != cudaSuccess) return e;
-  const int Bh = B >> kQuadLogBl;
-  const size_t smem = static_cast<size_t>(pad16(B) + 2 * kQuadBl + 2 * Bh) * sizeof(float2) +
-                      32 * sizeof(float);
+  const size_t smem = slab_smem(log_b, 32 * sizeof(float));
   if ((e = allow_smem(quad_slab_kernel, smem, g_granted_quad)) != cudaSuccess) return e;
-  const int threads = B / 16 > 32 ? B / 16 : 32;
-  quad_slab_kernel<<<dim3(A / 2 + 1, R), threads, smem, s>>>(
-      y2, reinterpret_cast<const float2*>(qt1), reinterpret_cast<const float2*>(qt2),
-      reinterpret_cast<const float2*>(qtw), wf, partial, A, log_b);
+  quad_slab_kernel<<<dim3(A / 2 + 1, R), slab_threads(log_b), smem, s>>>(
+      reinterpret_cast<const float2*>(y), reinterpret_cast<const float2*>(qt1),
+      reinterpret_cast<const float2*>(qt2), reinterpret_cast<const float2*>(qtw), wf, partial,
+      A, log_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each C entry point: every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "fgp_passb": [_P] * 12 + [_I] * 5 + [_P],
+    "fgp_pfft": [_P, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    "fgp_pifft_real": [_P] * 7 + [_I] * 4 + [_P],
     "fgp_quad": [_P] * 9 + [_I] * 3 + [_P],
     "fgp_fwht": [_P, _P, ctypes.c_longlong, _I, _I, _P],
 }

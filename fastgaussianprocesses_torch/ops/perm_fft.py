@@ -1,50 +1,56 @@
-r"""Permuted-spectrum FFT on float32 planes: the CUDA kernels K1-K3 and their
-plain PyTorch versions (counterpart of ``fastgaussianprocesses_tpu/ops/pallas_fft.py``).
+r"""Permuted-spectrum FFT on the card: the CUDA kernels K1-K3, their plain
+PyTorch versions and a plain-PyTorch emulation of the kernels' algorithm
+(counterpart of ``fastgaussianprocesses_tpu/ops/pallas_fft.py``).
 
-Factorization, tables and output bin order are the JAX package's, copied
-exactly (``_plan``, ``_tables``, ``spectrum_perm``), so spectra agree bin for
-bin and the solver state can be compared directly::
+Output bin order is the JAX package's, copied exactly (``_plan``,
+``spectrum_perm``), so spectra agree bin for bin and the solver state can be
+compared directly.  ``_plan``'s factorization::
 
-    n = A * B,  B = Bh * Bl,   j = a*B + bh*Bl + bl,   k = k1 + A*kh + A*Bh*kl
+    n = A0 * B0,  B0 = Bh * Bl,   j = a*B0 + bh*Bl + bl,   k = k1 + A0*kh + A0*Bh*kl
 
-    pass A : Y[k1, b]       = sum_a F_A[k1, a] x[a, b]          (torch.matmul)
-    pass B : tw w_n^{k1 b}, DFT over bh, tw w_B^{kh bl}, DFT over bl  (kernel)
+and the spectrum comes back as ``(Bh, A0, Bl)``: ``X_p.reshape(Bh, A0,
+Bl)[kh, k1, kl] == X[k1 + A0*kh + A0*Bh*kl]``, a fixed permutation with DC at
+index 0.  The plain versions compute it that way (pass A as ``torch.matmul``
+on float32 planes, then ``passb_plain``: twiddle, DFT over bh, twiddle, DFT
+over bl, with the float64-built tables of ``_tables``).
 
-The spectrum comes back as ``(Bh, A, Bl)``: ``X_p.reshape(Bh, A, Bl)[kh, k1,
-kl] == X[k1 + A*kh + A*Bh*kl]``, a fixed permutation with DC at index 0.
+Kernels (``csrc/perm_fft.cu``; each wrapper launches them for CUDA tensors,
+runs its plain version for CPU tensors, and raises for anything else).  All
+three run on one split of n, :func:`_slab_plan` (A = 256, B = 2^12 at
+n = 2^20): pass A as a length-A FFT (``pass_a_kernel``), and one block per
+(row, k1) slab for the length-B DFT of bins ``k1 + A*k2`` as Stockham
+radix-16 passes, each op two launches:
 
-Kernels (``csrc/perm_fft.cu``; each wrapper launches it for CUDA tensors,
-runs its plain version for CPU tensors, and raises for anything else):
-
-* **K1** :func:`passb` <- ``pallas_fft._passb_kernel`` (pass B of ``pfft``).
-  Per (row, k1): gather the (Bh, Bl) slab into shared memory, radix-2 DFTs
-  down bh and along bl, write the permuted spectrum.  Bound on the H100 by
-  bytes: 16 MB moved per n = 2^20 row (~5 us at 3.35 TB/s) against ~92
-  MFLOP of butterflies (~1.4 us at 67 TFLOP/s).  The slab is contiguous in
-  the k1-major pass-A output, so reads and writes are 512-byte runs.
-* **K2** :func:`passb_inv` <- ``pallas_fft._passb_inv_kernel`` (pass B of
-  ``pifft`` run backwards with the conjugate tables); the same bound.  It
-  writes k1-major so the inverse pass A (with 1/n) is a plain matmul.
+* **K1** :func:`pfft` <- ``pallas_fft._passb_kernel`` (the whole ``pfft``):
+  pass A on real or complex rows, then ``pfft_slab_kernel``, which applies
+  the twiddle w_n^{k1 b} on the load and writes each slab's bins straight
+  into their ``spectrum_perm`` places, as B/128 runs of 128 values
+  (:func:`slab_scatter_index`).
+* **K2** :func:`pifft_real` <- ``pallas_fft._passb_inv_kernel`` (the whole
+  ``pifft_real``): ``ifft(X) = conj(fft(conj X)) / n`` with K1's tables and
+  code in the other order: ``pifft_slab_kernel`` gathers each slab's runs
+  conjugated, runs the forward slab DFT and the twiddle after it, then pass
+  A keeps the real part, scaled by 1/n, in natural order.
 * **K3** :func:`quad_partials` <- ``pallas_fft._quad_kernel`` (``pfft_quad``):
   ``sum w |Z|^2`` over the spectrum of mean-centred real rows (centred as
-  pass A loads them when given the row means), the spectrum never written
-  whole.  The function is bound on the H100 by the single
-  4 MB read of an n = 2^20 row (~1.3 us; a real FFT of the row is
-  ~2.5*n*log2(n) FLOP, ~0.8 us).  A call is two launches on K3's own
-  split n = A*B (:func:`_quad_plan`: 256 x 2^12 at n = 2^20, so a slab is
-  32 KB): pass A as a length-A FFT, writing only the slabs k1 = 0..A/2
-  (for real rows slab A - k1 is the conjugate mirror of slab k1), then one
-  block per (row, k1 <= A/2) slab for the length-B DFT as Stockham
-  radix-16 passes and the sum with the folded weights of
-  :func:`fold_weights`.  The half spectrum (R, A/2+1, B) is scratch: at
-  n = 2^20 the call moves ~3x the fused bound.  One
-  partial sum per (row, k1 <= A/2), reduced in a fixed order; ``torch.sum``
-  over them follows, so the result is deterministic (no atomics).
-  :func:`quad_emulate` is the same two-phase algorithm in plain PyTorch.
+  pass A loads them), the spectrum never written whole: pass A writes only
+  the slabs k1 = 0..A/2 (for real rows slab A - k1 is the conjugate mirror
+  of slab k1), and ``quad_slab_kernel`` sums with the folded weights of
+  :func:`fold_weights`.  One partial sum per (row, k1 <= A/2), reduced in a
+  fixed order; ``torch.sum`` over them follows, so the result is
+  deterministic (no atomics).
 
-Inputs are float32; pass A and its inverse are ``torch.matmul`` on float32
-planes at full precision (TF32 is off, see ``config``), as the JAX package
-leaves them to XLA.
+Bound on the H100 (by bytes): ``pfft`` of a real n = 2^20 row reads 4 MB and
+writes 8 MB, ``pifft_real`` the reverse, ~3.6 us at 3.35 TB/s; K3 reads the
+row once.  The (R, A, B) complex scratch between the two launches (8 MB at
+n = 2^20, R = 1) stays in the 50 MB L2.  :func:`pfft_emulate`,
+:func:`pifft_real_emulate` and :func:`quad_emulate` are the kernels'
+algorithms in plain PyTorch, which the CPU tests hold against numpy and the
+JAX package.
+
+Inputs are float32; the plain versions' matmuls run at full float32
+precision (TF32 is off, see ``config``), as the JAX package leaves them to
+XLA.
 """
 
 import ctypes
@@ -59,8 +65,9 @@ from .bitops import log2_int
 _MIN_M = 14           # below this torch.fft is used (half-spectrum solver)
 _MAX_M = 22
 
-# launches of each kernel since the last reset (the CPU plain versions do not count)
-launches = {"passb": 0, "passb_inv": 0, "quad": 0}
+# launches of each kernel op since the last reset (a call is two kernel launches; the
+# CPU plain versions do not count)
+launches = {"pfft": 0, "pifft_real": 0, "quad": 0}
 
 
 def reset_launches() -> None:
@@ -75,7 +82,8 @@ def supported(n: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def _plan(n: int):
     """(A, Bh, Bl, K1B) exactly as the JAX package plans them (K1B is the
-    TPU kernel's k1 block and unused here: a CUDA block holds one k1)."""
+    TPU kernel's k1 block and unused here).  It fixes the spectrum's bin
+    order; the plain versions compute on it."""
     if n >= (1 << 17):
         A = max(64, min(256, n >> 14))
     else:
@@ -90,19 +98,21 @@ def _plan(n: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _quad_plan(n: int):
-    """K3's own split n = A * B: A in {64, 128, 256}, with B = n / A at most
-    2^12 where A = 256 allows it (2^13 and 2^14 at n = 2^21 and 2^22), so
-    that a slab (32 KB at B = 2^12) leaves room for several blocks an SM and
-    its FFT takes three radix-16 passes.  Returns (A, B)."""
+def _slab_plan(n: int):
+    """The kernels' split n = A * B: A in {64, 128, 256}, with B = n / A at
+    most 2^12 where A = 256 allows it (2^13 and 2^14 at n = 2^21 and 2^22),
+    so that a slab (32 KB at B = 2^12) leaves room for several blocks an SM
+    and its FFT takes three radix-16 passes.  A is ``_plan``'s A, twice or
+    four times it (the two coincide at n <= 2^18 and at 2^22).  Returns
+    (A, B)."""
     A = min(256, max(_plan(n)[0], n >> 12))
     return A, n // A
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(n: int, inverse: bool):
-    """Host-side DFT/twiddle tables: built in float64, stored as float32
-    (re, im) numpy pairs."""
+    """Host-side DFT/twiddle tables of ``_plan``'s factorization (the plain
+    versions): built in float64, stored as float32 (re, im) numpy pairs."""
     A, Bh, Bl, _ = _plan(n)
     B = Bh * Bl
     sign = +1.0 if inverse else -1.0
@@ -139,13 +149,21 @@ def spectrum_perm(n: int) -> np.ndarray:
     return (k1 + A * kh + A * Bh * kl).reshape(n)
 
 
-def _twiddle_row(F) -> np.ndarray:
-    """Radix-2 twiddles w_L^k (k < L/2) as interleaved float32 pairs: row 1 of
-    the float32 DFT table (one dummy pair when L == 1)."""
-    L = F[0].shape[0]
-    if L == 1:
-        return np.zeros((1, 2), np.float32)
-    return np.ascontiguousarray(np.stack([F[0][1, :L // 2], F[1][1, :L // 2]], -1))
+@functools.lru_cache(maxsize=None)
+def slab_scatter_index(n: int) -> np.ndarray:
+    """(A*B,) positions in the permuted spectrum of the kernels' bins: entry
+    ``k1*B + k2`` is where bin ``k1 + A*k2`` goes, (A, B) = ``_slab_plan(n)``,
+    computed as K1 and K2 compute it.  With A0 = ``_plan(n)[0]``, c = A/A0,
+    k1 = k1h*A0 + k1' and G = B/128, bin k2 = g + G*kl of slab k1 is kl of
+    the run kh = k1h + c*g: position (kh*A0 + k1')*128 + kl.  Equals
+    ``argsort(spectrum_perm(n))[k1 + A*k2]``."""
+    A, B = _slab_plan(n)
+    A0 = _plan(n)[0]
+    k1 = np.arange(A)[:, None]
+    k2 = np.arange(B)[None, :]
+    G = B // 128
+    kh = k1 // A0 + (A // A0) * (k2 % G)
+    return (((kh * A0 + k1 % A0) << 7) + k2 // G).reshape(-1)
 
 
 def _pairs(ph):
@@ -155,26 +173,28 @@ def _pairs(ph):
 
 @functools.lru_cache(maxsize=32)
 def _dev_tables(n: int, inverse: bool, device: torch.device) -> dict:
-    t = _tables(n, inverse)
+    """``_tables`` on ``device``, as (re, im) float32 tensor pairs."""
+    return {k: (torch.from_numpy(re).to(device), torch.from_numpy(im).to(device))
+            for k, (re, im) in _tables(n, inverse).items()}
+
+
+@functools.lru_cache(maxsize=32)
+def _dev_slab_tables(n: int, device: torch.device) -> dict:
+    """The kernels' forward tables on ``_slab_plan``'s split (A, B), B = Bh * 128,
+    as interleaved float32 pairs built in float64: w_A^j (j < A); w_B^j
+    (j < 128), then w_B^{128 j} (j < Bh); tw 1 w_n^{k1 b} (k1 < A) as
+    w_n^{128 k1 bh} (A, Bh) and w_n^{k1 bl} (A, 128)."""
+    A, B = _slab_plan(n)
+    Bl = 128
+    Bh = B // Bl
+    k1 = np.arange(A, dtype=np.float64)[:, None]
     out = {}
-    for k, (re, im) in t.items():
-        out[k] = (torch.from_numpy(re).to(device), torch.from_numpy(im).to(device))
-    out["twh"] = torch.from_numpy(_twiddle_row(t["FBh"])).to(device)
-    out["twl"] = torch.from_numpy(_twiddle_row(t["FBl"])).to(device)
-    if not inverse:
-        # K3 on its own split (A, B), B = Bh * Bl with Bl = 128: w_A^j (j < A);
-        # w_B^j (j < Bl), then w_B^{Bl j} (j < Bh); tw 1 w_n^{k1 b} for
-        # k1 <= A/2 as w_n^{k1 Bl bh} (A/2+1, Bh) and w_n^{k1 bl} (A/2+1, Bl)
-        A, B = _quad_plan(n)
-        Bl = 128
-        Bh = B // Bl
-        k1 = np.arange(A // 2 + 1, dtype=np.float64)[:, None]
-        for key, ph in (("twa", 2 * np.pi / A * np.arange(A)),
-                        ("qtw", 2 * np.pi / B * np.concatenate([np.arange(Bl),
-                                                                 Bl * np.arange(Bh)])),
-                        ("qt1", 2 * np.pi / n * k1 * Bl * np.arange(Bh)),
-                        ("qt2", 2 * np.pi / n * k1 * np.arange(Bl))):
-            out[key] = torch.from_numpy(_pairs(-ph)).to(device)
+    for key, ph in (("twa", 2 * np.pi / A * np.arange(A)),
+                    ("qtw", 2 * np.pi / B * np.concatenate([np.arange(Bl),
+                                                             Bl * np.arange(Bh)])),
+                    ("qt1", 2 * np.pi / n * k1 * Bl * np.arange(Bh)),
+                    ("qt2", 2 * np.pi / n * k1 * np.arange(Bl))):
+        out[key] = torch.from_numpy(_pairs(-ph)).to(device)
     return out
 
 
@@ -183,7 +203,7 @@ def _cmul(ar, ai, br, bi):
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions (same factorization and tables; any device)
+# plain PyTorch versions (_plan's factorization and tables; any device)
 # ---------------------------------------------------------------------------
 
 def _passb_stages(yr, yi, t):
@@ -205,8 +225,20 @@ def _twiddle1(yr, yi, t):
     return _cmul(yr, yi, T2r[:, None, :], T2i[:, None, :])
 
 
+def _pass_a(xr, xi, n: int):
+    """Natural (R, n) planes -> (R, A, B) k1-major planes: Y = F_A @ x."""
+    A = _plan(n)[0]
+    FAr, FAi = _dev_tables(n, False, xr.device)["FA"]
+    x3r = xr.reshape(-1, A, n // A)
+    if xi is None:
+        return FAr @ x3r, FAi @ x3r
+    x3i = xi.reshape(-1, A, n // A)
+    return FAr @ x3r - FAi @ x3i, FAi @ x3r + FAr @ x3i
+
+
 def passb_plain(Yr, Yi, n: int):
-    """Plain K1: (R, A, B) k1-major pass-A planes -> (R, n) permuted spectrum."""
+    """Pass B of ``_plan``: (R, A, B) k1-major pass-A planes -> (R, n)
+    permuted spectrum planes."""
     A, Bh, Bl, _ = _plan(n)
     R = Yr.shape[0]
     t = _dev_tables(n, False, Yr.device)
@@ -217,8 +249,8 @@ def passb_plain(Yr, Yi, n: int):
 
 
 def passb_inv_plain(Xr, Xi, n: int):
-    """Plain K2: (R, n) permuted spectrum -> (R, A, B) k1-major pre-pass-A
-    planes (inverse tables; no 1/n)."""
+    """Pass B of ``_plan`` undone: (R, n) permuted spectrum -> (R, A, B)
+    k1-major pre-pass-A planes (inverse tables; no 1/n)."""
     A, Bh, Bl, _ = _plan(n)
     R = Xr.shape[0]
     t = _dev_tables(n, True, Xr.device)
@@ -236,6 +268,33 @@ def passb_inv_plain(Xr, Xi, n: int):
     return yr.reshape(R, A, Bh * Bl), yi.reshape(R, A, Bh * Bl)
 
 
+def pfft_plain(x, n: int):
+    """Plain K1: (R, n) real or complex rows -> (R, n) complex64 permuted
+    spectrum; pass A as matmuls on float32 planes, then :func:`passb_plain`."""
+    if x.is_complex():
+        xr = x.real.to(torch.float32).contiguous()
+        xi = x.imag.to(torch.float32).contiguous()
+    else:
+        xr, xi = x.to(torch.float32).contiguous(), None
+    Yr, Yi = _pass_a(xr, xi, n)
+    R = xr.shape[0]
+    outr, outi = passb_plain(Yr.reshape(R, n), Yi.reshape(R, n), n)
+    return torch.complex(outr, outi)
+
+
+def pifft_real_plain(X, n: int):
+    """Plain K2: (R, n) permuted spectrum -> (R, n) float32 real part of its
+    inverse (1/n included): :func:`passb_inv_plain`, then the inverse pass A
+    as matmuls, without forming the imaginary plane."""
+    Xr = X.real.to(torch.float32).contiguous()
+    Xi = X.imag.to(torch.float32).contiguous()
+    Yr, Yi = passb_inv_plain(Xr, Xi, n)
+    A = _plan(n)[0]
+    FAr, FAi = _dev_tables(n, True, X.device)["FA"]
+    xr = (FAr * (1.0 / n)) @ Yr - (FAi * (1.0 / n)) @ Yi
+    return xr.reshape(-1, n)
+
+
 def quad_plain(xm, wk, n: int):
     """Plain K3: mean-centred (R, n) rows and (Bh, A, Bl) weights ->
     (R, A) partial sums ``sum_{kh,kl} wk[kh, k1, kl] |pfft(xm)[kh, k1, kl]|^2``."""
@@ -247,6 +306,148 @@ def quad_plain(xm, wk, n: int):
     yr, yi = _twiddle1(yr.reshape(R, A, Bh, Bl), yi.reshape(R, A, Bh, Bl), t)
     zr, zi = _passb_stages(yr, yi, t)                        # (r, k1, kh, kl)
     return torch.einsum("rkhl,hkl->rk", zr * zr + zi * zi, wk)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' algorithm in plain PyTorch (any device, float32 or float64)
+# ---------------------------------------------------------------------------
+
+def _cdtype(dtype):
+    return torch.complex128 if dtype in (torch.float64, torch.complex128) else torch.complex64
+
+
+def _dft_mat(m: int, dtype):
+    j = np.arange(m)
+    ph = (-2 * np.pi / m) * np.outer(j, j)
+    return torch.complex(torch.from_numpy(np.cos(ph)), torch.from_numpy(np.sin(ph))).to(dtype)
+
+
+def _expi(ph, dtype):
+    return torch.complex(torch.cos(ph), torch.sin(ph)).to(dtype)
+
+
+def _tw1(n: int, slabs: int, dtype):
+    """tw 1 of the first ``slabs`` slabs: (slabs, B) w_n^{k1 b}."""
+    B = _slab_plan(n)[1]
+    return _expi((-2 * np.pi / n) * torch.outer(torch.arange(slabs), torch.arange(B)).double(),
+                 dtype)
+
+
+def pass_a_emulate(x, n: int, half: bool = False):
+    """Pass A as ``pass_a_kernel`` factors it: real or complex (R, n) rows ->
+    (R, A, B) complex ``Y[k1, b] = sum_a x[a*B + b] w_A^{a k1}``, only the
+    slabs k1 <= A/2 when ``half`` (K3).  (A, B) = ``_slab_plan(n)``,
+    A = A1*A2, a = A2*a1 + a2, k1 = p + A1*q."""
+    A = _slab_plan(n)[0]
+    A1 = 8 if A == 64 else 16
+    A2 = A // A1
+    R, B = x.shape[0], n // A
+    cdt = _cdtype(x.dtype)
+    x = x.reshape(R, A1, A2, B).to(cdt)                                 # [r, a1, a2, b]
+    u = torch.einsum("ip,riab->rapb", _dft_mat(A1, cdt), x)            # [r, a2, p, b]
+    a2p = torch.outer(torch.arange(A2), torch.arange(A1)).double()
+    u = u * _expi((-2 * np.pi / A) * a2p, cdt)[None, :, :, None]
+    y = torch.einsum("aq,rapb->rqpb", _dft_mat(A2, cdt), u)            # [r, q, p, b]
+    y = y.reshape(R, A, B)
+    return y[:, :A // 2 + 1] if half else y
+
+
+def slab_dft(z, n: int):
+    """The slab kernels' length-B DFT of the last axis (B = ``_slab_plan(n)[1]``)
+    as their Stockham passes: radix 2^(log2 B mod 4) first, then 16s."""
+    B = _slab_plan(n)[1]
+    m = log2_int(B)
+    cdt = z.dtype
+    radices = ([1 << (m % 4)] if m % 4 else []) + [16] * (m // 4)
+    ns = 1
+    for r in radices:
+        j = torch.arange(B // r)
+        k = j % ns
+        q = torch.arange(r)
+        v = z[..., j[None, :] + (B // r) * q[:, None]]                 # [.., q, j]
+        v = v * _expi((-2 * np.pi / (ns * r)) * torch.outer(q, k).double(), cdt)
+        v = torch.einsum("qp,...qj->...pj", _dft_mat(r, cdt), v)
+        dest = (j // ns) * ns * r + k
+        out = torch.empty_like(z)
+        out[..., dest[None, :] + ns * q[:, None]] = v
+        z, ns = out, ns * r
+    return z
+
+
+@functools.lru_cache(maxsize=8)
+def _scatter_index(n: int, device: torch.device):
+    return torch.from_numpy(slab_scatter_index(n)).to(device)
+
+
+def pfft_emulate(x, n: int):
+    """K1's two launches in plain PyTorch: (R, n) real or complex rows ->
+    (R, n) permuted spectrum (complex64, or complex128 from float64)."""
+    A = _slab_plan(n)[0]
+    y = pass_a_emulate(x, n)
+    z = slab_dft(y * _tw1(n, A, y.dtype), n)                  # [r, k1, k2] = X[k1 + A k2]
+    out = torch.empty((x.shape[0], n), dtype=z.dtype, device=z.device)
+    out[:, _scatter_index(n, z.device)] = z.reshape(-1, n)
+    return out
+
+
+def pifft_real_emulate(X, n: int):
+    """K2's two launches in plain PyTorch: (R, n) permuted spectrum -> (R, n)
+    real part of its inverse (1/n included), as ``conj(fft(conj X)) / n``."""
+    A, B = _slab_plan(n)
+    z = X.index_select(-1, _scatter_index(n, X.device)).reshape(-1, A, B).conj()
+    y = slab_dft(z, n)
+    y = y * _tw1(n, A, y.dtype)                               # tw 1 after the slab DFT
+    return pass_a_emulate(y.reshape(-1, n), n).real.reshape(-1, n) * (1.0 / n)
+
+
+def quad_slab_sums(y, wf, n: int):
+    """K3's slab phase in plain PyTorch: (R, A/2+1, B) half pass-A output and
+    (A/2+1, B) folded weights -> (R, A/2+1) per-slab sums
+    ``sum_k2 wf[k1, k2] |DFT_B(w_n^{k1 b} Y[k1, b])[k2]|^2``."""
+    z = slab_dft(y * _tw1(n, y.shape[1], y.dtype), n)
+    return torch.einsum("rkb,kb->rk", z.real ** 2 + z.imag ** 2, wf.to(z.real.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_index(n: int):
+    """Indices into the flat permuted weights for K3's folded weights, on
+    ``_slab_plan``'s split (A, B): ``idx`` (A/2+1, B) of bin k = k1 + A*k2,
+    and ``mirror`` (A/2-1, B) of bin n - k for the slabs 1 <= k1 < A/2, whose
+    conjugate mirror slab A - k1 is not computed (slabs 0 and A/2 hold both
+    bins of every pair)."""
+    A = _slab_plan(n)[0]
+    inv = np.argsort(spectrum_perm(n))          # inv[k]: permuted position of bin k
+    k = np.arange(A // 2 + 1)[:, None] + A * np.arange(n // A)[None, :]
+    return inv[k], inv[n - k[1:A // 2]]
+
+
+@functools.lru_cache(maxsize=32)
+def _dev_fold_index(n: int, device: torch.device):
+    return tuple(torch.from_numpy(i.reshape(-1)).to(device) for i in _fold_index(n))
+
+
+def fold_weights(wk, n: int):
+    """(Bh, A0, Bl) permuted weights -> (A/2+1, B) folded weights ``w'[k1, k2]``
+    of bin k = k1 + A*k2: ``w_k + w_{n-k}`` for 1 <= k1 < A/2, ``w_k`` for
+    k1 = 0 and A/2.  For a real row, ``sum_k w_k |X_k|^2 ==
+    sum_{k1 <= A/2, k2} w'[k1, k2] |X_{k1 + A k2}|^2``.  A zeroed DC weight
+    stays zero: bin 0 lies in slab 0, which is not folded.  (A, B) is
+    ``_slab_plan(n)``."""
+    A = _slab_plan(n)[0]
+    idx, mirror = _dev_fold_index(n, wk.device)
+    flat = wk.reshape(-1)
+    wf = flat.index_select(0, idx).reshape(A // 2 + 1, n // A)
+    wf[1:A // 2] += flat.index_select(0, mirror).reshape(A // 2 - 1, n // A)
+    return wf
+
+
+def quad_emulate(x, wk, n: int, mean):
+    """K3's two-phase algorithm in plain PyTorch (any device, float32 or
+    float64): (R, n) rows, centred by subtracting ``mean`` (R,), and
+    (Bh, A0, Bl) weights -> (R, A/2+1) per-slab partial sums, whose row sums
+    equal those of :func:`quad_plain` on the centred rows."""
+    y = pass_a_emulate(x - mean[:, None], n, half=True)
+    return quad_slab_sums(y, fold_weights(wk, n), n)
 
 
 # ---------------------------------------------------------------------------
@@ -265,148 +466,60 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _table_ptrs(t):
-    return [_ptr(x) for k in ("T1", "T2", "T3") for x in t[k]] + [_ptr(t["twh"]), _ptr(t["twl"])]
-
-
-def _passb_cuda(inr, ini, n: int, inverse: bool):
-    A, Bh, Bl, _ = _plan(n)
-    R = inr.shape[0]
-    shape = (R, n)
-    _check(inr, shape, "passb input (re)")
-    _check(ini, shape, "passb input (im)")
-    if ini.device != inr.device:
-        raise ValueError("passb: planes on different devices")
+def _launch(fn, name, dev, *args):
+    """Call the C entry point ``fn`` on ``dev``'s current stream; raise on a
+    CUDA error."""
     lib = cuda_lib.load()
-    t = _dev_tables(n, inverse, inr.device)
-    outr, outi = torch.empty_like(inr), torch.empty_like(ini)
-    with torch.cuda.device(inr.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fgp_passb(_ptr(inr), _ptr(ini), _ptr(outr), _ptr(outi), *_table_ptrs(t),
-                            R, A, log2_int(Bh), log2_int(Bl), int(inverse),
-                            ctypes.c_void_p(stream))
-    cuda_lib.check(lib, err, "fgp_passb")
-    launches["passb_inv" if inverse else "passb"] += 1
-    return outr, outi
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+    cuda_lib.check(lib, err, fn)
+    launches[name] += 1
 
 
-def passb(Yr, Yi, n: int):
-    """K1: (R, A, B) k1-major pass-A planes, flattened to (R, n) -> (R, n)
-    permuted-spectrum planes."""
-    if Yr.device.type == "cpu":
-        return passb_plain(Yr, Yi, n)
-    return _passb_cuda(Yr, Yi, n, inverse=False)
+def _as_planes(z, n: int, what: str):
+    """Complex (R, n) -> its interleaved float32 (R, n, 2) view (copied to
+    complex64 and contiguous first where needed), checked for the kernels."""
+    v = torch.view_as_real(z.to(torch.complex64).resolve_conj().contiguous())
+    _check(v, (z.shape[0], n, 2), what)
+    return v
 
 
-def passb_inv(Xr, Xi, n: int):
-    """K2: (R, n) permuted-spectrum planes -> (R, n) k1-major pre-pass-A planes."""
-    if Xr.device.type == "cpu":
-        Yr, Yi = passb_inv_plain(Xr, Xi, n)
-        return Yr.reshape(-1, n), Yi.reshape(-1, n)
-    return _passb_cuda(Xr, Xi, n, inverse=True)
+def _pfft_cuda(x, n: int):
+    R = x.shape[0]
+    if x.is_complex():
+        xin = _as_planes(x, n, "pfft rows")
+    else:
+        xin = x.to(torch.float32).contiguous()
+        _check(xin, (R, n), "pfft rows")
+    out = torch.empty((R, n), dtype=torch.complex64, device=x.device)
+    A, B = _slab_plan(n)
+    t = _dev_slab_tables(n, x.device)
+    y = torch.empty((R, A, B, 2), dtype=torch.float32, device=x.device)
+    _launch("fgp_pfft", "pfft", x.device, _ptr(xin), int(x.is_complex()),
+            *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y), _ptr(out),
+            R, A, log2_int(_plan(n)[0]), log2_int(B))
+    return out
 
 
-@functools.lru_cache(maxsize=None)
-def _fold_index(n: int):
-    """Indices into the flat permuted weights for K3's folded weights, on its
-    split (A, B) = ``_quad_plan(n)``: ``idx`` (A/2+1, B) of bin k = k1 + A*k2,
-    and ``mirror`` (A/2-1, B) of bin n - k for the slabs 1 <= k1 < A/2, whose
-    conjugate mirror slab A - k1 is not computed (slabs 0 and A/2 hold both
-    bins of every pair)."""
-    A = _quad_plan(n)[0]
-    inv = np.argsort(spectrum_perm(n))          # inv[k]: permuted position of bin k
-    k = np.arange(A // 2 + 1)[:, None] + A * np.arange(n // A)[None, :]
-    return inv[k], inv[n - k[1:A // 2]]
-
-
-@functools.lru_cache(maxsize=32)
-def _dev_fold_index(n: int, device: torch.device):
-    return tuple(torch.from_numpy(i.reshape(-1)).to(device) for i in _fold_index(n))
-
-
-def fold_weights(wk, n: int):
-    """(Bh, A, Bl) permuted weights -> (A/2+1, B) folded weights ``w'[k1, k2]``
-    of bin k = k1 + A*k2: ``w_k + w_{n-k}`` for 1 <= k1 < A/2, ``w_k`` for
-    k1 = 0 and A/2.  For a real row, ``sum_k w_k |X_k|^2 ==
-    sum_{k1 <= A/2, k2} w'[k1, k2] |X_{k1 + A k2}|^2``.  A zeroed DC weight
-    stays zero: bin 0 lies in slab 0, which is not folded.  (A, B) is
-    ``_quad_plan(n)``."""
-    A = _quad_plan(n)[0]
-    idx, mirror = _dev_fold_index(n, wk.device)
-    flat = wk.reshape(-1)
-    wf = flat.index_select(0, idx).reshape(A // 2 + 1, n // A)
-    wf[1:A // 2] += flat.index_select(0, mirror).reshape(A // 2 - 1, n // A)
-    return wf
-
-
-def _dft_mat(m: int, dtype):
-    j = np.arange(m)
-    ph = (-2 * np.pi / m) * np.outer(j, j)
-    return torch.complex(torch.from_numpy(np.cos(ph)), torch.from_numpy(np.sin(ph))).to(dtype)
-
-
-def _expi(ph, dtype):
-    return torch.complex(torch.cos(ph), torch.sin(ph)).to(dtype)
-
-
-def quad_half_pass_a(xm, n: int):
-    """K3 phase 1 in plain PyTorch: real (R, n) rows -> (R, A/2+1, B) complex
-    ``Y[k1, b] = sum_a x[a, b] w_A^{a k1}`` for k1 <= A/2, as the kernel
-    factors it: (A, B) = ``_quad_plan(n)``, A = A1*A2, a = A2*a1 + a2,
-    k1 = p + A1*q."""
-    A = _quad_plan(n)[0]
-    A1 = 8 if A == 64 else 16
-    A2 = A // A1
-    R, B = xm.shape[0], n // A
-    cdt = torch.complex128 if xm.dtype == torch.float64 else torch.complex64
-    x = xm.reshape(R, A1, A2, B).to(cdt)                                # [r, a1, a2, b]
-    u = torch.einsum("ip,riab->rapb", _dft_mat(A1, cdt), x)            # [r, a2, p, b]
-    a2p = torch.outer(torch.arange(A2), torch.arange(A1)).double()
-    u = u * _expi((-2 * np.pi / A) * a2p, cdt)[None, :, :, None]
-    y = torch.einsum("aq,rapb->rqpb", _dft_mat(A2, cdt), u)            # [r, q, p, b]
-    return y.reshape(R, A, B)[:, :A // 2 + 1]
-
-
-def quad_slab_sums(y, wf, n: int):
-    """K3 phase 2 in plain PyTorch: (R, A/2+1, B) half pass-A output and
-    (A/2+1, B) folded weights -> (R, A/2+1) per-slab sums
-    ``sum_k2 wf[k1, k2] |DFT_B(w_n^{k1 b} Y[k1, b])[k2]|^2``, the DFT as the
-    kernel's Stockham passes (radix 2^(log2 B mod 4) first, then 16s)."""
-    A, B = _quad_plan(n)
-    H = A // 2 + 1
-    m = log2_int(B)
-    cdt = y.dtype
-    k1b = torch.outer(torch.arange(H), torch.arange(B)).double()
-    z = y * _expi((-2 * np.pi / n) * k1b, cdt)                         # tw 1
-    radices = ([1 << (m % 4)] if m % 4 else []) + [16] * (m // 4)
-    ns = 1
-    for r in radices:
-        j = torch.arange(B // r)
-        k = j % ns
-        q = torch.arange(r)
-        v = z[..., j[None, :] + (B // r) * q[:, None]]                 # [.., q, j]
-        v = v * _expi((-2 * np.pi / (ns * r)) * torch.outer(q, k).double(), cdt)
-        v = torch.einsum("qp,...qj->...pj", _dft_mat(r, cdt), v)
-        dest = (j // ns) * ns * r + k
-        out = torch.empty_like(z)
-        out[..., dest[None, :] + ns * q[:, None]] = v
-        z, ns = out, ns * r
-    return torch.einsum("rkb,kb->rk", z.real ** 2 + z.imag ** 2, wf.to(z.real.dtype))
-
-
-def quad_emulate(x, wk, n: int, mean):
-    """K3's two-phase algorithm in plain PyTorch (any device, float32 or
-    float64): (R, n) rows, centred by subtracting ``mean`` (R,), and
-    (Bh, A, Bl) weights -> (R, A/2+1) per-slab partial sums, whose row sums
-    equal those of :func:`quad_plain` on the centred rows."""
-    return quad_slab_sums(quad_half_pass_a(x - mean[:, None], n), fold_weights(wk, n), n)
+def _pifft_real_cuda(X, n: int):
+    R = X.shape[0]
+    Xin = _as_planes(X, n, "pifft_real spectrum")
+    out = torch.empty((R, n), dtype=torch.float32, device=X.device)
+    A, B = _slab_plan(n)
+    t = _dev_slab_tables(n, X.device)
+    y = torch.empty((R, A, B, 2), dtype=torch.float32, device=X.device)
+    _launch("fgp_pifft_real", "pifft_real", X.device, _ptr(Xin),
+            *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y), _ptr(out),
+            R, A, log2_int(_plan(n)[0]), log2_int(B))
+    return out
 
 
 def quad_partials(x, wk, n: int, mean):
-    """K3: (R, n) float32 rows ``x``, their (R,) means and (Bh, A, Bl)
-    weights -> per-row partial sums of ``wk * |pfft(x - mean)|^2``: (R, A)
+    """K3: (R, n) float32 rows ``x``, their (R,) means and (Bh, A0, Bl)
+    weights -> per-row partial sums of ``wk * |pfft(x - mean)|^2``: (R, A0)
     per k1 of ``_plan(n)`` from the plain version for CPU tensors,
-    (R, A/2+1) per half-spectrum slab of ``_quad_plan(n)`` from the two
+    (R, A/2+1) per half-spectrum slab of ``_slab_plan(n)`` from the two
     kernels for CUDA tensors.  The kernel centres a row as it loads it, so
     the caller writes no centred copy."""
     if x.device.type == "cpu":
@@ -416,25 +529,21 @@ def quad_partials(x, wk, n: int, mean):
     _check(mean, (R,), "quad row means")
     A0, Bh, Bl, _ = _plan(n)
     _check(wk, (Bh, A0, Bl), "quad weights")
-    A, B = _quad_plan(n)
-    lib = cuda_lib.load()
-    t = _dev_tables(n, False, x.device)
+    A, B = _slab_plan(n)
+    t = _dev_slab_tables(n, x.device)
     wf = fold_weights(wk, n)
     H = A // 2 + 1
     y = torch.empty((R, H, B, 2), dtype=torch.float32, device=x.device)
     partial = torch.empty((R, H), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fgp_quad(*[_ptr(v) for v in (x, mean, t["twa"], t["qt1"], t["qt2"],
-                                                 t["qtw"], wf, y, partial)],
-                           R, A, log2_int(B), ctypes.c_void_p(stream))
-    cuda_lib.check(lib, err, "fgp_quad")
-    launches["quad"] += 1
+    _launch("fgp_quad", "quad", x.device,
+            *[_ptr(v) for v in (x, mean, t["twa"], t["qt1"], t["qt2"], t["qtw"], wf, y,
+                                partial)],
+            R, A, log2_int(B))
     return partial
 
 
 # ---------------------------------------------------------------------------
-# public ops (complex in/out; float32 planes inside)
+# public ops (complex in/out)
 # ---------------------------------------------------------------------------
 
 def _flatten_batch(x, n):
@@ -442,45 +551,22 @@ def _flatten_batch(x, n):
     return x.reshape(-1, n), lead
 
 
-def _pass_a(xr, xi, n: int):
-    """Natural (R, n) planes -> (R, A, B) k1-major planes: Y = F_A @ x."""
-    A = _plan(n)[0]
-    FAr, FAi = _dev_tables(n, False, xr.device)["FA"]
-    x3r = xr.reshape(-1, A, n // A)
-    if xi is None:
-        return FAr @ x3r, FAi @ x3r
-    x3i = xi.reshape(-1, A, n // A)
-    return FAr @ x3r - FAi @ x3i, FAi @ x3r + FAr @ x3i
-
-
 def pfft(x, n: int):
     """Unnormalized DFT of the last axis in PERMUTED spectrum order
-    (``spectrum_perm``).  ``x`` real or complex; returns complex64."""
+    (``spectrum_perm``), through K1 on the card.  ``x`` real or complex;
+    returns complex64."""
     x2, lead = _flatten_batch(x, n)
-    if x2.is_complex():
-        xr = x2.real.to(torch.float32).contiguous()
-        xi = x2.imag.to(torch.float32).contiguous()
-    else:
-        xr, xi = x2.to(torch.float32).contiguous(), None
-    Yr, Yi = _pass_a(xr, xi, n)
-    R = xr.shape[0]
-    outr, outi = passb(Yr.reshape(R, n), Yi.reshape(R, n), n)
-    return torch.complex(outr, outi).reshape(lead + (n,))
+    out = pfft_plain(x2, n) if x2.device.type == "cpu" else _pfft_cuda(x2, n)
+    return out.reshape(lead + (n,))
 
 
 def pifft_real(X, n: int):
-    """Real part of the inverse of :func:`pfft` (includes 1/n): permuted
-    spectrum in, natural order out, without forming the imaginary plane."""
+    """Real part of the inverse of :func:`pfft` (includes 1/n), through K2 on
+    the card: permuted spectrum in, natural order out, float32, without
+    forming the imaginary part."""
     X2, lead = _flatten_batch(X, n)
-    Xr = X2.real.to(torch.float32).contiguous()
-    Xi = X2.imag.to(torch.float32).contiguous()
-    Yr, Yi = passb_inv(Xr, Xi, n)
-    A = _plan(n)[0]
-    FAr, FAi = _dev_tables(n, True, X2.device)["FA"]
-    R = Xr.shape[0]
-    Y3r, Y3i = Yr.reshape(R, A, n // A), Yi.reshape(R, A, n // A)
-    xr = (FAr * (1.0 / n)) @ Y3r - (FAi * (1.0 / n)) @ Y3i
-    return xr.reshape(lead + (n,))
+    out = pifft_real_plain(X2, n) if X2.device.type == "cpu" else _pifft_real_cuda(X2, n)
+    return out.reshape(lead + (n,))
 
 
 def pfft_quad(x, w, n: int):

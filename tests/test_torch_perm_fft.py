@@ -2,7 +2,9 @@
 versions of kernels K1-K3, which the wrappers run for CPU tensors, against
 float64 numpy and the JAX package's Pallas kernels (interpret mode), with
 the JAX package's own tolerances (tests/test_pallas_fft.py).  The CUDA
-kernels themselves are held against the plain versions on the card."""
+kernels themselves are held against the plain versions on the card; the
+kernels' algorithm in plain PyTorch is tested in test_torch_pfft_kernels.py
+(K1, K2) and test_torch_quad.py (K3)."""
 
 import numpy as np
 import pytest
@@ -76,10 +78,15 @@ def test_wrappers_take_plain_path_only_on_cpu():
     x = torch.randn(2, n, generator=torch.Generator().manual_seed(1))
     tp.pfft_quad(x, torch.ones(n), n)
     tp.pifft_real(tp.pfft(x, n), n)
-    assert tp.launches == {"passb": 0, "passb_inv": 0, "quad": 0}
+    tp.pfft(x.to(torch.complex64), n)
+    assert tp.launches == {"pfft": 0, "pifft_real": 0, "quad": 0}
     meta = torch.empty(1, n, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tp.passb(meta, meta, n)
+        tp.pfft(meta, n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tp.pfft(meta.to(torch.complex64), n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tp.pifft_real(meta.to(torch.complex64), n)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tp.quad_partials(meta, torch.empty(tp._plan(n)[1], tp._plan(n)[0],
                                            tp._plan(n)[2], device="meta"), n,
@@ -88,25 +95,26 @@ def test_wrappers_take_plain_path_only_on_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,R", [(1 << 14, 3), (1 << 15, 2), (1 << 17, 2), (1 << 17, 3),
-                                 (1 << 20, 1), (1 << 20, 25), (1 << 20, 59), (1 << 22, 1)])
+                                 (1 << 19, 1), (1 << 20, 1), (1 << 20, 25), (1 << 20, 59),
+                                 (1 << 21, 1), (1 << 22, 1)])
 def test_kernels_match_plain_on_card(n, R):
     """K1-K3 on the card against their plain versions (float32, relative to
-    the max; the kernels sum in another order than the plain einsums).  K3's
-    per-row sums are compared: the kernels give one partial per slab k1 <=
-    A/2, the plain version one per k1."""
+    the max; the kernels sum in another order than the plain matmuls): K1
+    (``pfft``) on real and complex rows, K2 (``pifft_real``) on the spectra
+    of both.  2^19, 2^20 and 2^21 are the sizes where the kernels' split is
+    not ``_plan``'s.  K3's per-row sums are compared: the kernels give one
+    partial per slab k1 <= A/2, the plain version one per k1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    Yr, Yi = torch.randn(R, n, generator=g), torch.randn(R, n, generator=g)
-    pr, pi = tp.passb_plain(Yr, Yi, n)
-    kr, ki = tp.passb(Yr.to(dev), Yi.to(dev), n)
-    assert _rel(torch.complex(kr, ki).cpu().numpy(), torch.complex(pr, pi).numpy()) < 3e-6
-    ir, ii = tp.passb_inv_plain(pr, pi, n)
-    jr, ji = tp.passb_inv(pr.to(dev), pi.to(dev), n)
-    want = torch.complex(ir, ii).reshape(R, n).numpy()
-    assert _rel(torch.complex(jr, ji).cpu().numpy(), want) < 3e-6
     x = torch.randn(R, n, generator=g) + 2.0
+    xc = torch.complex(torch.randn(R, n, generator=g), torch.randn(R, n, generator=g))
+    for rows in (x, xc):
+        X = tp.pfft_plain(rows, n)
+        assert _rel(tp.pfft(rows.to(dev), n).cpu().numpy(), X.numpy()) < 3e-6
+        want = tp.pifft_real_plain(X, n).numpy()
+        assert _rel(tp.pifft_real(X.to(dev), n).cpu().numpy(), want) < 3e-6
     m = x.mean(-1)
     A, Bh, Bl, _ = tp._plan(n)
     wk = torch.rand(Bh, A, Bl, generator=g)

@@ -52,7 +52,7 @@ def test_quad_emulate_matches_numpy(n, dtype, tol):
     x, xm, wk = _rows_and_weights(n, 3)
     xt = torch.from_numpy(x).to(dtype)
     got = tp.quad_emulate(xt, torch.from_numpy(wk).to(dtype), n, xt.mean(-1))
-    A = tp._quad_plan(n)[0]
+    A = tp._slab_plan(n)[0]
     assert got.shape == (3, A // 2 + 1) and got.dtype == dtype
     assert _rel(got.sum(-1).double().numpy(), _numpy_quad(xm, wk, n)) < tol
 
@@ -79,7 +79,7 @@ def test_fold_weights_sum_over_half_slabs(n):
     sum over the slabs k1 <= A/2 with the folded weights; the zeroed DC
     weight stays zero, and slabs 0 and A/2 are not folded.  K3's split has
     A = 128 at 2^14 and 2^15, 64 at 2^17 and 256 at 2^20."""
-    A = tp._quad_plan(n)[0]
+    A = tp._slab_plan(n)[0]
     _, xm, wk = _rows_and_weights(n, 1)
     wf = tp.fold_weights(torch.from_numpy(wk), n).numpy()
     assert wf.shape == (A // 2 + 1, n // A)
@@ -99,9 +99,9 @@ def test_half_pass_a_matches_direct_dft(n):
     radix-2 first Stockham pass at 2^16; A = 256, B = 2^12 at 2^20, the
     main path's) against the direct length-A DFT in float64, slabs
     k1 = 0..A/2 only; then the whole emulation at 2^16."""
-    A = tp._quad_plan(n)[0]
+    A = tp._slab_plan(n)[0]
     x = np.random.default_rng(2).standard_normal((1, n))
-    got = tp.quad_half_pass_a(torch.from_numpy(x), n).numpy()
+    got = tp.pass_a_emulate(torch.from_numpy(x), n, half=True).numpy()
     F = np.exp(-2j * np.pi * np.outer(np.arange(A // 2 + 1), np.arange(A)) / A)
     want = np.einsum("ka,rab->rkb", F, x.reshape(1, A, n // A))
     assert got.shape == want.shape
@@ -139,7 +139,7 @@ def test_card_quad_never_reaches_plain_or_emulation(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the card path reached a plain version of K3")
 
-    for name in ("quad_plain", "quad_emulate", "quad_half_pass_a", "quad_slab_sums"):
+    for name in ("quad_plain", "quad_emulate", "pass_a_emulate", "quad_slab_sums", "slab_dft"):
         monkeypatch.setattr(tp, name, refuse)
     tp.reset_launches()
     for n, R in [(1 << 15, 2), (1 << 20, 3)]:
