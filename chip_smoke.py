@@ -19,7 +19,8 @@ Phases; any failure raises and the exit code is not 0:
    lattice, K4 for the digital net).  They run first, so that the lattice's
    first request pays what a fresh serving process pays.  One more
    ``post_mean_var`` of each runs under ``torch.profiler`` for the
-   device-time split.
+   device-time split; the digital net's must subtract no row means from a
+   whole query chunk (K4 centres the rows as it loads them).
 3. Kernels K1-K3 (``ops/perm_fft``, each two launches a call): K1 and K2
    are the whole ops ``pfft`` (real and complex rows) and ``pifft_real``,
    held against their plain PyTorch versions at every split the kernels
@@ -40,13 +41,22 @@ Phases; any failure raises and the exit code is not 0:
    Kernel K4 (``ops/fwht``) the same way at n = 2^14, R = 3 and at the
    shapes of the digital-net path (n = 2^20 with R = 1 and the query chunk,
    R = 119; n = 2^22, R = 1), and against float64 and float32 numpy
-   butterfly networks; no PyTorch call computes a Walsh-Hadamard
-   transform, so K4 has no library yardstick.
+   butterfly networks (also centring the rows as it loads them); no
+   PyTorch call computes a Walsh-Hadamard transform, so K4 has no library
+   yardstick.  At R = 1 also "cold": calls cycling through inputs larger
+   than the 50 MB L2, as the serving path finds its input; at R = 119 also
+   the whole op ``ft_stable_fwht``, K4's group sizes 8, 12, 16 and 32 MB,
+   and the rate at which K4 moves the function's bytes.
 4. Cross-checks at n = 2^16, d = 8: the card's float32 paths against the
    CPU's float32 plain-kernel paths and the CPU's float64 paths (lattice:
    half spectrum; digital net: the general solver).
 5. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
+does (public API only), for the package in DIR (default: this checkout),
+and prints one ``{"fwht_times": ...}`` line: a way to time another
+checkout (a parent commit) on the same card.
 """
 
 import json
@@ -67,6 +77,7 @@ PEAK_FP32_S = 67e12       # H100 SXM FP32 without tensor cores (FMA = 2 FLOP)
 N_MAIN = 1 << 20
 D = 8
 N_QUERY = 4096
+NB_DIGITAL = 119          # rows of the digital net's query chunk at n = 2^20
 TOL_KERNEL = 3e-6         # max relative error against the plain version, f32
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -317,10 +328,12 @@ def _raw_params(seed=7):
             "noise_task_kernel": np.zeros(1)}
 
 
-def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours):
+def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours, no_centred_copy=False):
     """Phase 2: the n = 2^20, d = 8 serving path of one model on the card.
     ``path_kernels``: the launch counters its run must move; ``ours``: the
-    substrings of their CUDA kernel names in the profile."""
+    substrings of their CUDA kernel names in the profile; ``no_centred_copy``:
+    fail if the profiled request subtracts row means from a whole query chunk
+    (``x - x.mean(-1, keepdim=True)``: K4 centres on load)."""
     sync = torch.cuda.synchronize
     xq = torch.as_tensor(np.random.default_rng(11).uniform(size=(N_QUERY, D)), device="cuda")
     for c in counters:
@@ -393,11 +406,21 @@ def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours):
 
     # device-time split of one more post_mean_var (not counted above)
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=no_centred_copy) as prof:
         t0 = time.perf_counter()
         gp.post_mean_var(xq)
         sync()
         wall = time.perf_counter() - t0
+    if no_centred_copy:
+        nb = gp._query_chunk_size(N_QUERY, N_MAIN)
+        subs = sum(e.count for e in prof.key_averages(group_by_input_shape=True)
+                   if e.key in ("aten::sub", "aten::sub_")
+                   and [nb, N_MAIN] in e.input_shapes and [nb, 1] in e.input_shapes)
+        log(f"  row-mean subtractions over a ({nb}, 2^20) query chunk in the profiled "
+            f"request: {subs}")
+        if subs:
+            raise AssertionError("the request wrote a centred copy of a query chunk")
     evs = [(dev_us(e), e) for e in prof.key_averages()]
     evs = sorted([(t, e) for t, e in evs if t > 0], key=lambda te: -te[0])
     total = sum(t for t, _ in evs)
@@ -458,56 +481,120 @@ def np_fwht(x):
     return y * x.dtype.type(1.0 / math.sqrt(n))
 
 
-def phase_fwht(torch, tf, nb):
+def fwht_times(torch, tf, ttr, nb, g):
+    """K4's times at the digital-net path's shapes and n = 2^14, R = 3, each a
+    CUDA graph of repeated calls between events: ``warm`` calls on one input
+    (in L2 when it fits), ``cold`` calls cycling through inputs larger than
+    the L2 (the serving path's calls find theirs cold), ``op`` the whole
+    ``ft_stable_fwht``.  Only the public API, so that it times an older
+    checkout of the package as well (``--fwht-times``)."""
+    out = {}
+    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)]:
+        key = f"2^{int(math.log2(n))},{R}"
+        x = torch.randn(R, n, generator=g).to("cuda")
+        it = 50 if R == 1 else 10
+        out[key] = {"warm": gtime(lambda: tf.fwht(x), it)}
+        if R == 1:  # inputs of 96 MB in all, more than the 50 MB L2
+            xs = [torch.randn(R, n, generator=g).to("cuda")
+                  for _ in range(max(2, (24 << 20) // n))]
+            k = [0]
+
+            def rot():
+                tf.fwht(xs[k[0] % len(xs)])
+                k[0] += 1
+            out[key]["cold"] = gtime(rot, 2 * len(xs))
+            del xs
+        if R == nb:
+            out[key]["op"] = gtime(lambda: ttr.ft_stable_fwht(x), it)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fwht(torch, tf, ttr, nb):
     """Phase 3 for K4: against its plain version, float64 numpy and the
-    float32 numpy butterflies; times and bounds.  ``nb``: the query chunk's
-    row count on the digital-net path."""
+    float32 numpy butterflies (also centring on load); times, bounds, the
+    group-size sweep and the HBM rate.  ``nb``: the query chunk's row count
+    on the digital-net path."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     rows = {}
     for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)]:
         m = int(math.log2(n))
-        x = torch.randn(R, n, generator=g).to(dev)
+        x = torch.randn(R, n, generator=g).to(dev) + 1.5
         k = tf.fwht(x)
         p = tf.fwht_plain(x)
+        mu = x.mean(-1)
+        km = tf.fwht(x, mu)
         torch.cuda.synchronize()
         rel, ab = rel_err(k, p)
         # the first rows against numpy: float64 (the true values), and float32
         # in the kernel's order of operations, which it must match bit for bit
+        # (centred on load: against numpy centring first)
         r = min(R, 4)
         x0 = x[:r].cpu().numpy()
         k0 = k[:r].cpu().numpy()
         want = torch.from_numpy(np_fwht(x0.astype(np.float64)))
         e64 = rel_err(torch.from_numpy(k0), want)[0]
         same32 = bool(np.array_equal(k0, np_fwht(x0)))
+        same_mean = bool(np.array_equal(km[:r].cpu().numpy(),
+                                        np_fwht(x0 - mu[:r].cpu().numpy()[:, None])))
         # the float64 instantiation on the same values
         e_d = rel_err(tf.fwht(x[:r].double()), want)[0]
         log(f"  K4 fwht n=2^{m} R={R:3d}: max rel err vs plain {rel:.3e} (tol {16 * EPS32:.1e}, "
             f"16 ulps), vs float64 numpy {e64:.3e} (tol {4 * EPS32:.1e}), float32 numpy "
-            f"butterflies bitwise equal: {same32}; float64 kernel vs numpy {e_d:.1e} (tol 1e-13)")
-        if not (rel < 16 * EPS32 and e64 < 4 * EPS32 and same32 and e_d < 1e-13):
+            f"butterflies bitwise equal: {same32}, centred on load: {same_mean}; float64 "
+            f"kernel vs numpy {e_d:.1e} (tol 1e-13)")
+        if not (rel < 16 * EPS32 and e64 < 4 * EPS32 and same32 and same_mean and e_d < 1e-13):
             raise AssertionError(f"K4 disagrees with its references at n={n}, R={R}")
-        it_k, it_p = (50, 10) if R == 1 else (10, 3)
-        ms = gtime(lambda: tf.fwht(x), it_k)
-        pms = gtime(lambda: tf.fwht_plain(x), it_p)
-        nbytes_ = 2 * nbytes(x)               # read once, write once
+        rows[(n, R)] = dict(max_abs_err=ab,
+                            plain_ms=gtime(lambda: tf.fwht_plain(x), 10 if R == 1 else 3))
+        del x, k, p, km
+        torch.cuda.empty_cache()
+    times = fwht_times(torch, tf, ttr, nb, g)
+    for (n, R), r in rows.items():
+        m = int(math.log2(n))
+        t = times[f"2^{m},{R}"]
+        nbytes_ = 2 * 4 * R * n               # read once, write once
         flops = R * n * (m + 1)               # n log2 n adds and n scalings a row
         bms, by = bound(nbytes_, flops)
-        log(f"  K4 n=2^{m} R={R:3d}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library none; "
-            f"bound {bms:.4f} ms by {by} ({nbytes_ / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        rows[(n, R)] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=ab)
-        del x, k, p
-        torch.cuda.empty_cache()
+        r.update(ms=t["warm"], bound_ms=bms, bound_by=by, op_ms=t.get("op"))
+        extra = "".join(f", {k} {v:.4f} ms" for k, v in t.items() if k != "warm")
+        log(f"  K4 n=2^{m} R={R:3d}: kernel {t['warm']:.4f} ms (warm){extra}; plain "
+            f"{r['plain_ms']:.4f} ms, library none; bound {bms:.4f} ms by {by} "
+            f"({nbytes_ / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); the function's bytes at "
+            f"{nbytes_ / t['warm'] / 1e9:.3f} TB/s")
+    # the pass-1 output of a group of rows that pass 2 reads back from L2
+    x = torch.randn(nb, N_MAIN, generator=g).to(dev)
+    sweep = {}
+    for mb in (8, 12, 16, 32):
+        plan = tf.fwht_plan(N_MAIN, nb, tf._sm_count(0), mb << 20, 4)
+        sweep[mb] = gtime(lambda: tf._fwht_cuda(x, None, plan), 10)
+    log(f"  K4 n=2^20 R={nb}: group size (pass-1 output) " + ", ".join(
+        f"{mb} MB {ms:.4f} ms" for mb, ms in sweep.items()) + f"; in use "
+        f"{tf.GROUP_BYTES >> 20} MB")
+    del x
+    torch.cuda.empty_cache()
     return rows
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--fwht-times"]:
+        # K4's times alone, for the package at argv[1] (default: this checkout's)
+        if len(argv) > 1:
+            sys.path.insert(0, os.path.abspath(argv[1]))
+        from fastgaussianprocesses_torch.ops import fwht as tf, transforms as ttr
+        log(f"card: {smi_line()}; package {os.path.dirname(tf.__file__)}")
+        times = fwht_times(torch, tf, ttr, NB_DIGITAL, torch.Generator().manual_seed(1))
+        print(json.dumps({"fwht_times": times}))
+        return 0
     import fastgaussianprocesses_torch as ft
     from fastgaussianprocesses_torch.ops import cuda_lib, fwht as tf, perm_fft as tp
+    from fastgaussianprocesses_torch.ops import transforms as ttr
 
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -521,10 +608,12 @@ def main():
                               ("pfft", "pifft_real", "quad"), ("pass_a_kernel", "slab_kernel"))
     log("phase 2: serving FastGPDigitalNetB2(d=8) at n=2^20 on the card")
     counts_dn, nb = phase_serving(torch, ft, (tp, tf), ft.FastGPDigitalNetB2, "_FastSolver",
-                                  ("fwht",), ("fwht_",))
+                                  ("fwht",), ("fwht_",), no_centred_copy=True)
+    if nb != NB_DIGITAL:
+        raise AssertionError(f"the digital net's query chunk is {nb} rows, not {NB_DIGITAL}")
     log("phase 3: kernels against their plain versions")
     rows = phase_kernels(torch, tp)
-    rows_fwht = phase_fwht(torch, tf, nb)
+    rows_fwht = phase_fwht(torch, tf, ttr, nb)
     log("phase 4: cross-check at n=2^16, d=8")
     # card f32 against CPU f32 runs the same arithmetic but for the kernels'
     # summation order (measured on the H100: lattice at most 6.4e-6; digital
@@ -560,7 +649,7 @@ def main():
                     "replaces": "fastgaussianprocesses_tpu/ops/pallas_fwht.py:59",
                     "launches": counts_dn["fwht"], "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None,
+                    "bound_by": r["bound_by"], "library_ms": None, "op_ms": r["op_ms"],
                     "shape": f"n=2^20, R={nb}"})
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -571,4 +660,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

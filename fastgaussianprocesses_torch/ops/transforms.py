@@ -6,7 +6,8 @@ matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
 * ``rfft_stable_*`` / ``irfft_*`` -- the Hermitian half spectrum over
   ``torch.fft``, for float64 and for n below 2^14.
 * ``ft_stable_fwht`` -- the orthonormal FWHT of ``ops/fwht`` (kernel K4 on
-  the card), self-inverse; ``merge_doubling`` grows a transform from n to 2n.
+  the card, centring the rows as it loads them), self-inverse;
+  ``merge_doubling`` grows a transform from n to 2n.
 
 The stabilized wrappers subtract the mean before transforming and add
 ``mean * sqrt(n)`` back into the DC bin, avoiding cancellation for
@@ -86,9 +87,23 @@ def irfft_br(x_half: torch.Tensor, n: int) -> torch.Tensor:
     return irfft_plain(x_half, n).index_select(-1, bitrev_index(n, x_half.device))
 
 
+def _centre_on_load(transform, x):
+    """``_stabilize`` for a transform that takes the row means and subtracts
+    them as it loads the rows (``transform(x, mean)``): no centred copy."""
+    n = x.shape[-1]
+    xmean = x.mean(-1)
+    y = transform(x.contiguous(), xmean)
+    y[..., 0] += (xmean * math.sqrt(n)).to(y.dtype)
+    return y
+
+
 def ft_stable_fwht(x: torch.Tensor) -> torch.Tensor:
-    """Mean-centred orthonormal FWHT (self-inverse), kernel K4 on the card."""
-    return _stabilize(fwht, x)
+    """Mean-centred orthonormal FWHT (self-inverse), kernel K4 on the card.
+    There K4 subtracts the row means as it loads the rows, which rounds as
+    ``x - xmean`` does, so the result is the same without a centred copy."""
+    if x.device.type == "cpu":
+        return _stabilize(fwht, x)
+    return _centre_on_load(fwht, x)
 
 
 def merge_doubling(prev: torch.Tensor, new_half_t: torch.Tensor, omega) -> torch.Tensor:

@@ -130,3 +130,122 @@ def test_kernel_matches_plain_on_card(m):
     # leading batch dims
     x3 = torch.randn(2, 3, 1 << m, generator=g).to(dev)
     assert _rel(tf.fwht(x3).cpu().numpy(), tf.fwht_plain(x3.cpu()).numpy()) < 16 * EPS32
+
+
+def _np_fwht_inplace(x):
+    """Float32 (or float64) radix-2 butterflies, the lowest index bit first,
+    then 1/sqrt(n): the order K4 adds in, computed in place."""
+    R, n = x.shape
+    y, h = x.copy(), 1
+    while h < n:
+        v = y.reshape(R, -1, 2, h)
+        u = v[:, :, 0].copy()
+        v[:, :, 0] += v[:, :, 1]
+        np.subtract(u, v[:, :, 1], out=v[:, :, 1])
+        h *= 2
+    return y * x.dtype.type(1.0 / math.sqrt(n))
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", range(0, 23))
+def test_kernel_bitwise_equals_numpy_butterflies_on_card(m):
+    """Float32 K4 equals the float32 numpy butterfly network bit for bit,
+    R = 1, 3 and 37 rows (and 119 at n = 2^20, the query chunk), also when it
+    subtracts the row means as it loads (against numpy centring first), and
+    on rows that are not 16-byte aligned; float64 within 1e-13 of float64
+    numpy."""
+    _needs_card()
+    g = np.random.default_rng(m)
+    for R in (1, 3, 37) + ((119,) if m == 20 else ()):
+        x = (g.standard_normal((R, 1 << m)) + 1.5).astype(np.float32)
+        xd = torch.from_numpy(x).cuda()
+        assert np.array_equal(tf.fwht(xd).cpu().numpy(), _np_fwht_inplace(x))
+        mu = xd.mean(-1)
+        xm = x - mu.cpu().numpy()[:, None]
+        assert np.array_equal(tf.fwht(xd, mu).cpu().numpy(), _np_fwht_inplace(xm))
+        if R == 3:
+            big = torch.from_numpy(np.concatenate([[0.0], x.reshape(-1)]).astype(np.float32))
+            xu = big.cuda()[1:].view(R, -1)
+            assert np.array_equal(tf.fwht(xu).cpu().numpy(), _np_fwht_inplace(x))
+            x64 = x.astype(np.float64)
+            got = tf.fwht(torch.from_numpy(x64).cuda()).cpu().numpy()
+            assert _rel(got, _np_fwht_inplace(x64)) < 1e-13
+
+
+@pytest.mark.cuda
+def test_card_launch_count_and_graph_replays():
+    """One wrapper call is one launch; a CUDA graph that captures ``fwht``
+    (two passes at n = 2^20, R = 5) gives the eager call's bits on three
+    replays, so the entry point resets its counters each time."""
+    _needs_card()
+    x = torch.randn(5, 1 << 20, device="cuda")
+    tf.reset_launches()
+    want = tf.fwht(x)
+    assert tf.launches == {"fwht": 1}
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tf.fwht(x)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tf.fwht(x)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_card_path_reaches_neither_plain_nor_emulation(monkeypatch):
+    """With the plain version and the emulation made to raise, ``fwht`` and
+    ``ft_stable_fwht`` run on the card (one launch each)."""
+    _needs_card()
+
+    def refuse(*a, **k):
+        raise AssertionError("the card path reached a plain version of K4")
+
+    monkeypatch.setattr(tf, "fwht_plain", refuse)
+    monkeypatch.setattr(tf, "fwht_emulate", refuse)
+    x = torch.randn(3, 1 << 16, device="cuda")
+    tf.reset_launches()
+    tf.fwht(x)
+    ttr.ft_stable_fwht(x)
+    torch.cuda.synchronize()
+    assert tf.launches == {"fwht": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,R", [(12, 3), (16, 5), (20, 7)])
+def test_card_ft_stable_fwht_centres_on_load(m, R):
+    """On the card ``ft_stable_fwht`` equals ``fwht(x - mean)`` plus the DC
+    bump bit for bit, and no PyTorch subtraction runs over the rows: K4
+    subtracts the means as it loads."""
+    _needs_card()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls.append((str(func), [tuple(a.shape) for a in args
+                                           if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    x = torch.randn(R, 1 << m, device="cuda") + 3.0
+    with Ops() as ops:
+        got = ttr.ft_stable_fwht(x)
+    xmean = x.mean(-1, keepdim=True)
+    want = tf.fwht(x - xmean)
+    want[..., 0] += (xmean[..., 0] * math.sqrt(1 << m)).to(want.dtype)
+    assert torch.equal(got, want)
+    subs = [c for c in ops.calls if "sub" in c[0] and (R, 1 << m) in c[1]]
+    assert not subs, subs
