@@ -50,7 +50,24 @@ Phases; any failure raises and the exit code is not 0:
 4. Cross-checks at n = 2^16, d = 8: the card's float32 paths against the
    CPU's float32 plain-kernel paths and the CPU's float64 paths (lattice:
    half spectrum; digital net: the general solver).
-5. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
+5. The fit step, ``bench.py``'s configuration: ``fit(iterations=20)`` of
+   each model at n = 2^20, d = 8, float32 on the card, with the plain
+   versions of K1, K2 and K4 made to raise and the launch counters reset
+   just before and read just after (the lattice's MLL must launch K1 and,
+   as its backward, K2 every step; a short CV fit K2 and, as its backward,
+   K1; the digital net K4 twice a step); the loss finite and every trained
+   parameter moved.  The step (loss, gradient, Rprop update) timed as
+   ``bench.py:bench_fit_steps`` times it (wall time a step of chains of 64,
+   best of 3, at ``steps_per_dispatch`` 1 and 32), profiled (device busy
+   share, launches, the kernels' share, the series contraction forward and
+   backward against autograd through its loop), and its peak memory.  The
+   MLL and its gradient at n = 2^16, noise 1.0, on the card against the
+   CPU in float32 (plain kernels) and float64.  Each backward alone on the
+   card against autograd through ``torch.fft`` (K1/K2) or the CPU plain
+   version (K4, float64 and float32) at n = 2^14, 2^20, 2^22 and R = 1, 3,
+   with device times at n = 2^20, R = 1; one ``{"fit_step": ...}`` line.
+6. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
+   kernels, then K2, K1 and K4 as backwards in the fit) and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
@@ -578,6 +595,318 @@ def phase_fwht(torch, tf, ttr, nb):
     return rows
 
 
+def device_events(prof):
+    """(device ms, kernel launches) of the CUDA events in a profile."""
+    evs = [(dev_us(e), e.count) for e in prof.key_averages()]
+    return sum(t for t, _ in evs) / 1e3, sum(c for t, c in evs if t > 0)
+
+
+def device_total_ms(torch, fn, iters=10):
+    """Device time of all of ``fn``'s CUDA work per call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, _ = device_events(prof)
+    if not ms > 0:
+        raise AssertionError("the profiler recorded no device time")
+    return ms / iters
+
+
+class refuse_plain:
+    """Within the block, the plain versions of K1, K2 and K4 raise: the card
+    path must reach the kernels only."""
+
+    def __init__(self, tp, tf):
+        self.mods = ((tp, "pfft_plain"), (tp, "pifft_real_plain"), (tf, "fwht_plain"))
+
+    def __enter__(self):
+        self.saved = [getattr(m, k) for m, k in self.mods]
+
+        def refuse(*a, **k):
+            raise AssertionError("the card path reached a plain kernel version")
+        for m, k in self.mods:
+            setattr(m, k, refuse)
+
+    def __exit__(self, *exc):
+        for (m, k), f in zip(self.mods, self.saved):
+            setattr(m, k, f)
+
+
+def fit_model(torch, cls, n, dtype=None, device=None, **kw):
+    """``bench.py``'s fit configuration: d = 8, seed 7, alpha 2, y = sin(2 pi x0)
+    cos(2 pi x1) + sum x, default hyperparameters."""
+    gp = cls(D, seed_for_seq=7, alpha=2, dtype=dtype, device=device, **kw)
+    gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(n))))
+    return gp
+
+
+def fit_chain(torch, gp, lg, data, iters, K):
+    """``iters`` fit steps (loss, gradient, Rprop update) as ``fit`` runs
+    them with ``steps_per_dispatch`` K: losses fetched once per K steps;
+    ended by ``torch.cuda.synchronize()``."""
+    from fastgaussianprocesses_torch.fit.rprop import rprop_init
+    raw = gp._raw_dict()
+    opt = rprop_init(raw)
+    trainable = {k: p.trainable for k, p in gp.params.items()}
+    for _ in range(iters // K):
+        steps, stats = gp._fit_steps(lg, raw, opt, data, trainable, K)
+        _, raw, opt = steps[-1]
+        if not all(math.isfinite(v[0]) for v in stats):
+            raise AssertionError("non-finite loss in the timed fit steps")
+    torch.cuda.synchronize()
+
+
+def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
+    """Phase 5: ``fit(iterations=20)`` of one model at n = 2^20, d = 8, float32
+    on the card with the plain kernel versions refused; the launch counters
+    (reset just before) must grow by ``per_step`` a step.  Then the step's
+    times (``bench.py:bench_fit_steps``: best of 3 chains, per step, at
+    ``steps_per_dispatch`` 1 and 32), its profile (device busy share,
+    launches, the kernels ``ours``, the series contraction forward and
+    backward) and peak device memory.  ``cv_per_step``: also a short CV fit
+    (coefficients through ``pifft_real``, whose backward is K1), with its
+    launches a step.  Returns the launch counts and the measurements."""
+    from fastgaussianprocesses_torch.kernels import series
+    sync = torch.cuda.synchronize
+    gp = fit_model(torch, cls, N_MAIN)
+    before = {k: p.raw.clone() for k, p in gp.params.items()}
+    with refuse_plain(tp, tf):
+        for c in (tp, tf):
+            c.reset_launches()
+        t0 = time.perf_counter()
+        out = gp.fit(iterations=20, verbose=0, store_loss_hist=True)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {k: v for c in (tp, tf) for k, v in c.launches.items()}
+    steps = 21          # iterations 0..20, all computed in one dispatch of K = 32
+    lh = out["loss_hist"]
+    log(f"  fit(iterations=20): {wall:.3f} s, {out['iterations']} iterations, MLL "
+        f"{lh[0]:.6e} -> {lh[-1]:.6e}; launches {counts}")
+    if type(gp._solver()).__name__ != solver or gp.dtype != torch.float32:
+        raise AssertionError(f"the card model did not take the float32 {solver} path")
+    if not np.isfinite(lh).all() or len(lh) != out["iterations"] + 1:
+        raise AssertionError("fit: non-finite or missing losses")
+    for k, p in gp.params.items():
+        if torch.equal(p.raw, before[k]) == p.trainable:
+            raise AssertionError(f"fit: {k} {'did not move' if p.trainable else 'moved'}")
+    for k, m in per_step.items():
+        if counts[k] < m * steps:
+            raise AssertionError(f"fit: {k} launched {counts[k]} times in {steps} steps")
+    if cv_per_step:
+        with refuse_plain(tp, tf):
+            for c in (tp, tf):
+                c.reset_launches()
+            out = gp.fit(loss_metric="CV", iterations=3, verbose=0, store_loss_hist=True)
+            cv_counts = {k: v for c in (tp, tf) for k, v in c.launches.items()}
+        log(f"  fit(loss_metric='CV', iterations=3): CV {out['loss_hist'][0]:.6e} -> "
+            f"{out['loss_hist'][-1]:.6e}; launches {cv_counts}")
+        if not np.isfinite(out["loss_hist"]).all() or any(
+                cv_counts[k] < m * 4 for k, m in cv_per_step.items()):
+            raise AssertionError("CV fit: non-finite loss or a kernel short of its launches")
+        counts["cv"] = cv_counts
+
+    gp = fit_model(torch, cls, N_MAIN)
+    mll_const = N_MAIN * math.log(2 * math.pi)
+    lg = gp._make_loss_fn("MLL", None, 1, mll_const, 1)
+    data = gp._fit_data()
+    res = {}
+    with refuse_plain(tp, tf):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for K in (1, 32):
+            fit_chain(torch, gp, lg, data, 32, K)
+        for _ in range(3):          # the two step counts in turns, best of 3 each
+            for K in (1, 32):
+                t0 = time.perf_counter()
+                fit_chain(torch, gp, lg, data, 64, K)
+                ms = (time.perf_counter() - t0) / 64 * 1e3
+                res[f"step_ms_K{K}"] = min(res.get(f"step_ms_K{K}", math.inf), ms)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["peak_above_base_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fit_chain(torch, gp, lg, data, 8, 8)
+            wall = (time.perf_counter() - t0) / 8
+    dev_ms, nlaunch = device_events(prof)
+    evs = sorted([(dev_us(e), e) for e in prof.key_averages() if dev_us(e) > 0],
+                 key=lambda te: -te[0])
+    mine = sum(t for t, e in evs if any(o in e.key for o in ours)) / 1e3 / 8
+    res.update(wall_ms=wall * 1e3, device_ms=dev_ms / 8, launches=nlaunch / 8, kernels_ms=mine)
+    # the series contraction alone, forward and forward + backward
+    params = gp._transformed({k: v.detach().requires_grad_(gp.params[k].trainable)
+                              for k, v in gp._raw_dict().items()})
+    k1p = data[0][0]
+    d0, c0 = gp.derivatives[0], gp.derivatives_coeffs[0]
+    g = torch.randn(N_MAIN, device=gp.device)
+
+    def contraction():
+        return series.kernel_from_parts_t(k1p, d0, d0, c0, c0, params["scale"],
+                                          params["lengthscales"])
+
+    def fwd():
+        with torch.no_grad():
+            contraction()
+    res["contraction_fwd_ms"] = device_total_ms(torch, fwd)
+    res["contraction_fwd_bwd_ms"] = device_total_ms(
+        torch, lambda: torch.autograd.grad(contraction(),
+                                           (params["scale"], params["lengthscales"]), g))
+    # its plain version: autograd through the product written out in place
+    ind = series._indicator(d0, d0, k1p.dtype, k1p.device)
+
+    def contraction_plain():
+        terms = None
+        for j in range(D):
+            f = ind[:, :, j, None] + params["lengthscales"][j] * k1p[..., j, :]
+            terms = f if terms is None else terms.mul_(f)
+        return params["scale"] * terms.sum((0, 1))
+    res["contraction_plain_fwd_bwd_ms"] = device_total_ms(
+        torch, lambda: torch.autograd.grad(contraction_plain(),
+                                           (params["scale"], params["lengthscales"]), g))
+    log(f"  step (loss, gradient, Rprop update), best of 3 chains of 64 steps: "
+        f"{res['step_ms_K1']:.3f} ms at steps_per_dispatch 1, {res['step_ms_K32']:.3f} ms at "
+        f"32; peak device memory {res['peak_gib']:.3f} GiB, of which the steps' own "
+        f"{res['peak_above_base_gib']:.3f} GiB (the rest was allocated before: caches, data)")
+    log(f"  profile of 8 steps (K = 8): wall {res['wall_ms']:.3f} ms a step, device busy "
+        f"{res['device_ms']:.4f} ms ({100 * res['device_ms'] / res['wall_ms']:.1f}%), "
+        f"{res['launches']:.1f} device launches a step; {'/'.join(per_step)} kernels "
+        f"{res['kernels_ms']:.4f} ms a step; series contraction forward "
+        f"{res['contraction_fwd_ms']:.4f} ms, forward + backward "
+        f"{res['contraction_fwd_bwd_ms']:.4f} ms (autograd through the loop written out: "
+        f"{res['contraction_plain_fwd_bwd_ms']:.4f} ms; device time)")
+    for t, e in evs[:12]:
+        log(f"    {t / 1e3 / 8:9.4f} ms  x{e.count / 8:<5.1f} {e.key[:100]}")
+    return counts, res
+
+
+def fit_grad_check(torch, ft, tp, tf, cls, labels):
+    """The MLL and its gradient at n = 2^16, d = 8, noise 1.0 (noise trained
+    too): the card's float32 path against the CPU's float32 plain kernels
+    and the CPU's float64 path, the latter also evaluated with float32's
+    eigenvalue floor (``fs.EIG_FLOOR_C`` scaled by eps32 / eps64).  The
+    floor lifts every eigenvalue by 8 eps max|lam|, which at this size moves
+    the float32 MLL of the digital net by ~6e-4 from float64's: the loss is
+    held within rtol 2e-4 of the CPU float32 and of the floor-matched
+    float64 evaluations.  Every gradient entry above 1e-3 of its parameter's
+    largest agrees in sign with each reference (the differentiated floor
+    makes each backend's gradient that of its own floored surface,
+    ``tests/test_pallas_fft.py:141-175``); on the card every trainable
+    gradient entry is non-zero."""
+    from fastgaussianprocesses_torch.linalg import fast_solver as fs
+    n = 1 << 16
+    res = {}
+    floor_c = fs.EIG_FLOOR_C
+    runs = list(zip(labels, ("cuda", "cpu", "cpu"), (torch.float32, torch.float32, torch.float64),
+                    (1.0, 1.0, 1.0)))
+    runs.append((labels[2] + " (float32 floor)", "cpu", torch.float64,
+                 EPS32 / float(np.finfo(np.float64).eps)))
+    for label, dev, dt, fscale in runs:
+        gp = fit_model(torch, cls, n, dtype=dt, device=dev, noise=1.0, requires_grad_noise=True)
+        lg = gp._make_loss_fn("MLL", None, 1, n * math.log(2 * math.pi), 1)
+        fs.EIG_FLOOR_C = floor_c * fscale
+        try:
+            if dev == "cuda":
+                with refuse_plain(tp, tf):
+                    loss, _, grads = lg(gp._raw_dict(), gp._fit_data())
+            else:
+                loss, _, grads = lg(gp._raw_dict(), gp._fit_data())
+        finally:
+            fs.EIG_FLOOR_C = floor_c
+        res[label] = (float(loss), {k: grads[k].double().cpu().numpy() for k in grads
+                                    if gp.params[k].trainable})
+        log(f"  {label}: solver {type(gp._solver()).__name__}, MLL {float(loss):.8e}, grads "
+            + ", ".join(f"{k} {np.array2string(v, precision=4)}" for k, v in res[label][1].items()))
+    v0, g0 = res[labels[0]]
+    if not all((v != 0).all() for v in g0.values()):
+        raise AssertionError("a trainable gradient entry is zero on the card")
+    for ref, lossref in zip(list(res)[1:], (True, False, True)):
+        v1, g1 = res[ref]
+        for k in g0:
+            big = np.abs(g1[k]) > 1e-3 * np.abs(g1[k]).max()
+            if not (np.sign(g0[k][big]) == np.sign(g1[k][big])).all():
+                raise AssertionError(f"gradient sign of {k}: card vs {ref}")
+        log(f"  card vs {ref}: MLL rel {abs(v0 / v1 - 1):.2e}"
+            f"{' (tol 2e-4)' if lossref else ''}, gradient signs agree")
+        if lossref and not abs(v0 / v1 - 1) < 2e-4:
+            raise AssertionError(f"MLL: card vs {ref}")
+
+
+def backward_checks(torch, tp, tf):
+    """Each backward alone on the card, against a library yardstick (autograd
+    through ``torch.fft`` and the ``spectrum_perm`` gather; for K4 in float64,
+    the CPU plain version), at n = 2^14, 2^20, 2^22 and R = 1, 3, at the
+    kernels' limits; device times beside the yardstick's at n = 2^20, R = 1."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    rows = {}
+    for n in (1 << 14, N_MAIN, 1 << 22):
+        perm = torch.as_tensor(tp.spectrum_perm(n), device=dev)
+        inv_perm = torch.argsort(perm)
+        for R in (1, 3):
+            x = (torch.randn(R, n, generator=g) + 2.0).to(dev).requires_grad_()
+            gc = torch.complex(torch.randn(R, n, generator=g), torch.randn(R, n, generator=g)).to(dev)
+            X = gc.clone().requires_grad_()
+            gr = torch.randn(R, n, generator=g).to(dev)
+            y1, y1l = tp.pfft(x, n), torch.fft.fft(x.to(torch.complex64)).index_select(-1, perm)
+            y2, y2l = tp.pifft_real(X, n), torch.fft.ifft(X.index_select(-1, inv_perm)).real
+            with refuse_plain(tp, tf):
+                b1 = torch.autograd.grad(y1, x, gc, retain_graph=True)[0]
+                b2 = torch.autograd.grad(y2, X, gr, retain_graph=True)[0]
+            e1 = rel_err(b1, torch.autograd.grad(y1l, x, gc, retain_graph=True)[0])
+            e2 = rel_err(b2, torch.autograd.grad(y2l, X, gr, retain_graph=True)[0])
+            x64 = torch.randn(R, n, generator=g, dtype=torch.float64)
+            xd = x64.to(dev).requires_grad_()
+            yd = tf.fwht(xd)
+            with refuse_plain(tp, tf):
+                b4 = torch.autograd.grad(yd, xd, xd.detach(), retain_graph=True)[0]
+            e4 = rel_err(b4, tf.fwht_plain(x64))
+            x32 = xd.detach().float().requires_grad_()
+            y32 = tf.fwht(x32)
+            with refuse_plain(tp, tf):
+                b432 = torch.autograd.grad(y32, x32, x32.detach(), retain_graph=True)[0]
+            e432 = rel_err(b432, tf.fwht_plain(x64.float()))
+            log(f"  backward n=2^{int(math.log2(n))} R={R}: pfft (K2) {e1[0]:.3e}, pifft_real "
+                f"(K1) {e2[0]:.3e} of the max vs torch.fft autograd (tol {TOL_KERNEL:.0e}); fwht "
+                f"(K4) float64 {e4[0]:.1e} (tol 1e-13), float32 {e432[0]:.2e} (tol "
+                f"{16 * EPS32:.1e}) vs the CPU plain version")
+            if not (e1[0] < TOL_KERNEL and e2[0] < TOL_KERNEL and e4[0] < 1e-13
+                    and e432[0] < 16 * EPS32):
+                raise AssertionError(f"a backward disagrees with its yardstick at n={n}, R={R}")
+            if n == N_MAIN and R == 1:
+                def grad_of(y, x, gg):
+                    return lambda: torch.autograd.grad(y, x, gg, retain_graph=True)
+                ms = {
+                    "K2 as pfft's backward": (
+                        device_total_ms(torch, grad_of(y1, x, gc), 20),
+                        device_total_ms(torch, grad_of(y1l, x, gc), 20),
+                        gtime(lambda: tp.pifft_real_plain(gc, n) * float(n), 10),
+                        nbytes(gc, x), fft_flops(n, R), e1[1]),
+                    "K1 as pifft_real's backward": (
+                        device_total_ms(torch, grad_of(y2, X, gr), 20),
+                        device_total_ms(torch, grad_of(y2l, X, gr), 20),
+                        gtime(lambda: tp.pfft_plain(gr, n) * (1.0 / n), 10),
+                        nbytes(gr, gc), fft_flops(n, R), e2[1]),
+                    "K4 as fwht's backward": (
+                        device_total_ms(torch, grad_of(y32, x32, x32.detach()), 20), None,
+                        gtime(lambda: tf.fwht_plain(x32.detach()), 10),
+                        nbytes(x32, x32), R * n * (math.log2(n) + 1), e432[1]),
+                }
+                for k, (kms, lms, pms, nb, fl, err) in ms.items():
+                    bms, by = bound(nb, fl)
+                    rows[k] = dict(ms=kms, library_ms=lms, plain_ms=pms, bound_ms=bms,
+                                   bound_by=by, max_abs_err=err)
+                    log(f"  {k} n=2^20 R=1: device {kms:.4f} ms, library (torch.fft "
+                        f"autograd) {'none' if lms is None else f'{lms:.4f} ms'}, plain "
+                        f"{pms:.4f} ms; bound {bms:.4f} ms by {by}")
+            del x, X, gc, gr, y1, y1l, y2, y2l, xd, yd, x32, y32
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -629,6 +958,23 @@ def main(argv):
                      ("card f32 fwht", "cpu f32 (plain fwht)", "cpu f64"),
                      ((5e-5, 5e-5, 1e-4, 5e-5, 5e-5), (5e-4, 5e-3, 1.5e-2, 5e-6, 3e-2)))
 
+    log("phase 5: fit at n=2^20, d=8 on the card (the plain kernel versions refused)")
+    log("  FastGPLattice (MLL: K1 forward, K2 its backward; CV: K2 forward, K1 its backward)")
+    fit_counts, fit_res = phase_fit(torch, ft, tp, tf, ft.FastGPLattice, "_PermSpectrumSolver",
+                                    {"pfft": 1, "pifft_real": 1}, ("pass_a_kernel", "slab_kernel"),
+                                    cv_per_step={"pfft": 2, "pifft_real": 2})
+    log("  FastGPDigitalNetB2 (MLL: K4 forward and backward)")
+    fit_counts_dn, fit_res_dn = phase_fit(torch, ft, tp, tf, ft.FastGPDigitalNetB2, "_FastSolver",
+                                          {"fwht": 2}, ("fwht_",))
+    log("  gradient at n=2^16, d=8, noise 1.0")
+    fit_grad_check(torch, ft, tp, tf, ft.FastGPLattice,
+                   ("card f32 perm", "cpu f32 perm (plain kernels)", "cpu f64 half spectrum"))
+    fit_grad_check(torch, ft, tp, tf, ft.FastGPDigitalNetB2,
+                   ("card f32 fwht", "cpu f32 (plain fwht)", "cpu f64"))
+    log("  each backward alone")
+    bwd = backward_checks(torch, tp, tf)
+    print(json.dumps({"fit_step": {"FastGPLattice": fit_res, "FastGPDigitalNetB2": fit_res_dn}}))
+
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
     spec = [("K1 perm_fft.pfft", "K1", 1, "pfft", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
             ("K2 perm_fft.pifft_real", "K2", 1, "pifft_real",
@@ -651,6 +997,19 @@ def main(argv):
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None, "op_ms": r["op_ms"],
                     "shape": f"n=2^20, R={nb}"})
+    for name, replaces, launches in (
+            ("K2 as pfft's backward", "pallas_fft.py:268", fit_counts["pifft_real"]),
+            ("K1 as pifft_real's backward", "pallas_fft.py:129", fit_counts["cv"]["pfft"]),
+            ("K4 as fwht's backward", "pallas_fwht.py:59", fit_counts_dn["fwht"])):
+        r = bwd[name]
+        kernels.append({"name": name + " (fit)", "route": "cuda",
+                        "source": src if name[1] in "12" else
+                        "fastgaussianprocesses_torch/csrc/fwht.cu",
+                        "replaces": "fastgaussianprocesses_tpu/ops/" + replaces,
+                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": "n=2^20, R=1"})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

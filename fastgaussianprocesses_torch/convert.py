@@ -1,24 +1,26 @@
-"""Carry hyperparameters over from a JAX-package model.
-
-The JAX package's fit is not ported yet; a model fitted there serves here::
+"""Carry hyperparameters over from a JAX-package model::
 
     raw = {k: np.asarray(v) for k, v in jax_gp._raw_dict().items()}
-    load_jax_params(torch_gp, raw)
+    trainable = {k: p.trainable for k, p in jax_gp.params.items()}
+    load_jax_params(torch_gp, raw, trainable)
 
-Both packages then compute the same posterior on the same data.  The raw
-values are the parameters before their transforms (``log`` of scale,
-lengthscales and noise by default), so the two models must use the same
-transforms, which the defaults do.
+Both packages then compute the same posterior on the same data, and their
+``fit`` trains the same parameters.  The raw values are the parameters
+before their transforms (``log`` of scale, lengthscales and noise by
+default), so the two models must use the same transforms, which the
+defaults do.
 """
 
 import numpy as np
 import torch
 
 
-def load_jax_params(model, raw) -> None:
+def load_jax_params(model, raw, trainable=None) -> None:
     """Set ``model``'s raw parameters from a ``{name: array}`` dict with the
     keys ``scale``, ``lengthscales``, ``noise``, ``factor_task_kernel`` and
-    ``noise_task_kernel``, each of the shape the model already has."""
+    ``noise_task_kernel``, each of the shape the model already has, and,
+    where ``trainable`` (``{name: bool}``) is given, which of them ``fit``
+    trains."""
     missing = set(model.params) - set(raw)
     if missing:
         raise KeyError(f"raw parameters missing: {sorted(missing)}")
@@ -29,3 +31,5 @@ def load_jax_params(model, raw) -> None:
             raise ValueError(f"{k}: shape {v.shape} != model's {tuple(p.raw.shape)}")
         new[k] = torch.tensor(v, dtype=model.dtype, device=model.device)
     model._set_raw(new)
+    for k, flag in (trainable or {}).items():
+        model.params[k] = model.params[k]._replace(trainable=bool(flag))

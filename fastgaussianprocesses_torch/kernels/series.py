@@ -136,10 +136,68 @@ def _indicator(beta0, beta1, dtype, device):
     return torch.as_tensor(ind, dtype=dtype, device=device)          # (p0, p1, d)
 
 
+def _factors(parts_t, lengthscales, ind):
+    """The product's factors ``ind_j + ls_j * parts_t[..., j, :]``, one
+    (*b, p0, p1, n) tensor at a time (one ``addcmul`` launch each)."""
+    d = parts_t.shape[-2]
+    aniso = lengthscales.shape[-1] == d
+    for j in range(d):
+        lsj = lengthscales[..., j if aniso else 0][..., None, None, None]    # (*b,1,1,1)
+        yield torch.addcmul(ind[:, :, j, None], lsj, parts_t[..., j, :])
+
+
+class _ProdTermsT(torch.autograd.Function):
+    """``prod_j (ind_j + ls_j * parts_t[..., j, :])`` over the dimension axis,
+    with the lengthscale cotangent written out (the JAX package's
+    ``_prod_terms_t`` custom VJP): ``dL/dls_j = sum g * parts_j * prefix_j *
+    suffix_j``, the products of the factors before and after j, so no
+    division (a factor may be zero).  The forward keeps its running
+    products, the prefixes; the backward walks j down with the running
+    suffix times the cotangent, two passes over n and one dot product a
+    dimension.  The parts are data and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, parts_t, lengthscales, ind):
+        prefixes, terms = [], None
+        for f in _factors(parts_t, lengthscales, ind):
+            if terms is None:
+                terms = f
+            elif ctx.needs_input_grad[1]:
+                prefixes.append(terms)
+                terms = terms * f
+            else:
+                terms.mul_(f)
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(parts_t, lengthscales, ind, *prefixes)
+        return terms
+
+    @staticmethod
+    def backward(ctx, g):
+        parts_t, ls, ind, *prefixes = ctx.saved_tensors
+        d = parts_t.shape[-2]
+        fs = list(_factors(parts_t, ls, ind))
+        run = g                                      # g * suffix_j
+        cols = [None] * d
+        for j in range(d - 1, -1, -1):
+            t = run if j == 0 else run * prefixes[j - 1]
+            cols[j] = torch.einsum("...pqn,pqn->...", t, parts_t[..., j, :])
+            if j:
+                run = run * fs[j]
+        dls = torch.stack(cols, -1)
+        if ls.shape[-1] != d:
+            dls = dls.sum(-1, keepdim=True)
+        return None, dls.sum_to_size(ls.shape), None
+
+
+def _prod_terms_t(parts_t, lengthscales, ind):
+    return _ProdTermsT.apply(parts_t, lengthscales, ind)
+
+
 def kernel_from_parts_t(parts_t, beta0, beta1, c0, c1, scale, lengthscales):
     """Hyperparameter contraction of first-column parts in the ``(p0, p1, d, n)``
-    layout (point axis last).  Forward only: the lengthscale VJP belongs to
-    the fit step.
+    layout (point axis last), differentiable in ``scale`` and
+    ``lengthscales`` (:class:`_ProdTermsT` writes the lengthscale cotangent
+    out, as the JAX package's ``_prod_terms_t`` does).
 
     Args:
         parts_t: (p0, p1, d, n).
@@ -149,16 +207,10 @@ def kernel_from_parts_t(parts_t, beta0, beta1, c0, c1, scale, lengthscales):
         (*batch_broadcast, n) kernel first-column values.
     """
     ind = _indicator(beta0, beta1, parts_t.dtype, parts_t.device)
-    d = parts_t.shape[-2]
-    aniso = lengthscales.shape[-1] == d
     # the product over d written out: no (*b, p0, p1, d, n) temporary, and no
     # torch.prod reduction kernel (its first use on the card costs seconds of
     # module loading)
-    terms = None
-    for j in range(d):
-        lsj = lengthscales[..., j if aniso else 0][..., None, None, None]   # (*b,1,1,1)
-        f = ind[:, :, j, None] + lsj * parts_t[..., j, :]                   # (*b,p0,p1,n)
-        terms = f if terms is None else terms.mul_(f)
+    terms = _prod_terms_t(parts_t, lengthscales, ind)                  # (*b,p0,p1,n)
     c0 = torch.as_tensor(np.asarray(c0), dtype=parts_t.dtype, device=parts_t.device)
     c1 = torch.as_tensor(np.asarray(c1), dtype=parts_t.dtype, device=parts_t.device)
     out = torch.sum(torch.sum(terms * c1[:, None], dim=-2) * c0[:, None], dim=-2)

@@ -22,7 +22,7 @@ def require_single_task(num_tasks: int) -> None:
     if num_tasks != 1:
         raise NotImplementedError(
             "this model needs the general multitask fast solver, which the port gains "
-            "with its multitask slice (ROADMAP queue 1 item 7)")
+            "with its multitask slice (ROADMAP queue 1 item 5)")
 
 
 class FastFactor(NamedTuple):
@@ -104,3 +104,22 @@ def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
 def dc_block(factor: FastFactor):
     """(..., 1, 1) zero-frequency inverse entry (posterior cubature)."""
     return (1.0 / factor.lam_eff[..., 0])[..., None, None]
+
+
+def trace_inverse(factor: FastFactor):
+    """Real trace of the inverse Gram (the GCV denominator)."""
+    require_single_task(len(factor.n_sorted))
+    return torch.real(1.0 / factor.lam_eff).sum(-1)
+
+
+def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
+    """Exact diagonal of ``K^-1`` in point space, one (..., n_l) tensor per
+    task in the original order.  With one task every frequency is its own
+    block, so the diagonal is constant, ``mean(Re(1/lam))``; ``kind``
+    (``"fourier"`` or ``"walsh"``) and ``point_class_fn`` (each point's
+    class among the coupled frequencies) serve the multitask residue blocks,
+    which come with the multitask slice."""
+    require_single_task(len(factor.n_sorted))
+    lam = factor.lam_eff
+    val = torch.real(1.0 / lam).mean(-1)
+    return [val[..., None].expand(val.shape + (lam.shape[-1],))]

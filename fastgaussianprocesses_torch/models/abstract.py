@@ -1,17 +1,21 @@
-"""Shared GP engine, serving half: parameters, data ingestion, posterior
+"""Shared GP engine: parameters, data ingestion, the fit loop, posterior
 queries (counterpart of ``fastgaussianprocesses_tpu/models/abstract.py``).
 
 The model object owns the hyperparameters, the data on its device and the
 host-side geometry caches.  PyTorch runs eagerly, so the JAX package's
 per-signature ``jit`` cache has no counterpart: each query runs its chunks
-in a Python loop.  The fit loop, ``post_cov``, ``post_ci`` and
-``post_error`` come with later slices.
+in a Python loop, and each fit step is the loss, its gradient by
+``torch.autograd.grad`` and an Rprop update, launched from Python.
+``post_cov``, ``post_ci`` and ``post_error`` come with later slices.
 """
+
+import math
 
 import numpy as np
 import torch
 
 from ..config import debug_checks_enabled, default_dtype, resolve_device
+from ..fit.rprop import rprop_init, rprop_update
 from .params import IDENTITY, LOG_EXP, make_param
 
 
@@ -47,6 +51,11 @@ class AbstractGP:
                  tfs_noise=LOG_EXP,
                  tfs_factor_task_kernel=IDENTITY,
                  tfs_noise_task_kernel=LOG_EXP,
+                 requires_grad_scale=True,
+                 requires_grad_lengthscales=True,
+                 requires_grad_noise=False,
+                 requires_grad_factor_task_kernel=None,
+                 requires_grad_noise_task_kernel=None,
                  shape_batch=(),
                  shape_scale=(1,),
                  shape_lengthscales=None,
@@ -60,7 +69,7 @@ class AbstractGP:
         if debug_checks_enabled():
             raise NotImplementedError(
                 "FASTGPS_TORCH_DEBUG selects the dense debug oracle, which the port "
-                "gains with its multitask slice (ROADMAP queue 1 item 7); unset it")
+                "gains with its multitask slice (ROADMAP queue 1 item 5); unset it")
         if num_tasks is None:
             self.solo_task = True
             self.default_task = 0
@@ -114,17 +123,28 @@ class AbstractGP:
             shape_factor_task_kernel = (num_tasks, rank_factor_task_kernel)
         if shape_noise_task_kernel is None:
             shape_noise_task_kernel = (num_tasks,)
+        if requires_grad_factor_task_kernel is None:
+            requires_grad_factor_task_kernel = num_tasks > 1
+        if requires_grad_noise_task_kernel is None:
+            requires_grad_noise_task_kernel = num_tasks > 1
+        if self._has_derivatives:
+            requires_grad_factor_task_kernel = requires_grad_noise_task_kernel = False
         sb, dt, dev = self.shape_batch, self.dtype, self.device
         self.params = {
-            "scale": make_param("scale", scale, shape_scale, tfs_scale, sb, 1, dt, dev),
+            "scale": make_param("scale", scale, shape_scale, tfs_scale, requires_grad_scale,
+                                sb, 1, dt, dev),
             "lengthscales": make_param("lengthscales", lengthscales, shape_lengthscales,
-                                       tfs_lengthscales, sb, 1, dt, dev),
-            "noise": make_param("noise", noise, shape_noise, tfs_noise, sb, 1, dt, dev),
+                                       tfs_lengthscales, requires_grad_lengthscales,
+                                       sb, 1, dt, dev),
+            "noise": make_param("noise", noise, shape_noise, tfs_noise, requires_grad_noise,
+                                sb, 1, dt, dev),
             "factor_task_kernel": make_param("factor_task_kernel", factor_task_kernel,
                                              shape_factor_task_kernel, tfs_factor_task_kernel,
+                                             requires_grad_factor_task_kernel,
                                              sb, 2, dt, dev, positive=False),
             "noise_task_kernel": make_param("noise_task_kernel", noise_task_kernel,
                                             shape_noise_task_kernel, tfs_noise_task_kernel,
+                                            requires_grad_noise_task_kernel,
                                             sb, 1, dt, dev, positive=True, allow_nonneg=True),
         }
         if self.params["scale"].raw.shape[-1] != 1 or self.params["noise"].raw.shape[-1] != 1:
@@ -192,6 +212,11 @@ class AbstractGP:
     @property
     def total_parameters(self):
         return sum(p.raw.numel() for p in self.params.values())
+
+    @property
+    def total_tuneable_parameters(self):
+        """Entries of the parameters that ``fit`` trains."""
+        return sum(p.raw.numel() for p in self.params.values() if p.trainable)
 
     @property
     def m(self):
@@ -537,3 +562,235 @@ class AbstractGP:
         if inttask:
             pmean, pvar = pmean[..., 0, :], pvar[..., 0, :]
         return pmean, pvar
+
+    # ------------------------------------------------------------------
+    # fitting
+    # ------------------------------------------------------------------
+    def fit(self,
+            loss_metric: str = "MLL",
+            iterations: int = 5000,
+            lr: float = None,
+            stop_crit_improvement_threshold: float = 5e-2,
+            stop_crit_wait_iterations: int = 10,
+            store_hists: bool = False,
+            store_loss_hist: bool = False,
+            store_scale_hist: bool = False,
+            store_lengthscales_hist: bool = False,
+            store_noise_hist: bool = False,
+            store_task_kernel_hist: bool = False,
+            verbose: int = 5,
+            verbose_indent: int = 4,
+            masks=None,
+            cv_weights=1,
+            checkpoint_path: str = None,
+            checkpoint_every: int = 50,
+            resume_from: str = None,
+            steps_per_dispatch: int = None):
+        """Hyperparameter optimization by Rprop with early stopping, as in the
+        JAX package: loss metrics MLL / GCV / CV, the best parameters
+        restored at the end, early stopping once the loss has not improved
+        by ``stop_crit_improvement_threshold`` (relative) for
+        ``stop_crit_wait_iterations`` iterations, optional histories.
+
+        ``steps_per_dispatch`` K: steps run back to back with their losses
+        kept on the device and fetched once per K steps (default 1 on the
+        CPU, 32 on the card).  Every step's record is kept, so early
+        stopping, histories, verbose lines and checkpoints are those of
+        K = 1; at most K - 1 steps past the stop are computed and dropped.
+        The JAX package's K = -1 (the whole fit in one device-side loop) and
+        ``masks`` (a selection over ``shape_batch``) are not ported yet and
+        raise ``NotImplementedError``.
+
+        ``checkpoint_path`` / ``checkpoint_every``: the whole optimization
+        state (raw parameters, Rprop step sizes and previous gradients, the
+        best parameters and loss, the early-stopping counters, the iteration
+        and the histories) is written to an ``.npz`` with the JAX package's
+        keys every ``checkpoint_every`` iterations and at the stop;
+        ``resume_from`` continues from one on the same trajectory as an
+        uninterrupted run.
+
+        Returns ``{"iterations": i, "<name>_hist": array, ...}``.
+        """
+        loss_metric = loss_metric.upper()
+        if loss_metric not in ("MLL", "GCV", "CV"):
+            raise ValueError(f"loss_metric must be MLL, GCV or CV, got {loss_metric}")
+        if not (self.n > 0).any():
+            raise ValueError("cannot fit without data")
+        if not (isinstance(iterations, int) and iterations >= 0):
+            raise ValueError("iterations must be a non-negative int")
+        if masks is not None:
+            raise NotImplementedError(
+                "masks select parameters over shape_batch, which the port gains with "
+                "batch fleets (ROADMAP queue 1 item 5)")
+        if steps_per_dispatch is None:
+            steps_per_dispatch = 1 if self.device.type == "cpu" else 32
+        if steps_per_dispatch == -1:
+            raise NotImplementedError(
+                "steps_per_dispatch=-1 (the whole fit as one device-side loop) is not "
+                "ported yet (ROADMAP queue 1 item 3); use K >= 1")
+        K = max(1, int(steps_per_dispatch))
+        lr = 1e-1 if lr is None else lr
+        logtol = math.log(1 + stop_crit_improvement_threshold)
+        trainable = {k: p.trainable for k, p in self.params.items()}
+        store = {"loss": store_hists or store_loss_hist}
+        for name, flag, keys in (
+                ("scale", store_scale_hist, ("scale",)),
+                ("lengthscales", store_lengthscales_hist, ("lengthscales",)),
+                ("noise", store_noise_hist, ("noise",)),
+                ("task_kernel", store_task_kernel_hist,
+                 ("factor_task_kernel", "noise_task_kernel"))):
+            store[name] = store_hists or (flag and any(trainable[k] for k in keys))
+        hists = {f"{k}_hist": [] for k, on in store.items() if on}
+        d_out = int(np.prod(self.shape_batch)) if self.shape_batch else 1
+        if verbose:
+            head = "%16s | %-10s | %-10s | %-10s" % ("iter of %.1e" % iterations, "loss",
+                                                     "term1", "term2")
+            print(" " * verbose_indent + head)
+            print(" " * verbose_indent + "~" * len(head))
+        mll_const = d_out * float(self.n.sum()) * math.log(2 * math.pi)
+        loss_and_grad = self._make_loss_fn(loss_metric, masks, d_out, mll_const, cv_weights)
+        fit_data = self._fit_data()
+        raw = self._raw_dict()
+        opt_state = rprop_init(raw, lr=lr)
+        best_loss = save_loss = math.inf
+        best_raw = raw
+        waits = i0 = 0
+        if resume_from is not None:
+            with np.load(resume_from) as ck:
+                def dev(a, like):
+                    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                best_raw = {k: dev(ck[f"best_{k}"], v) for k, v in raw.items()}
+                opt_state = opt_state._replace(
+                    step_sizes={k: dev(ck[f"ss_{k}"], v) for k, v in raw.items()},
+                    prev_grad={k: dev(ck[f"pg_{k}"], v) for k, v in raw.items()})
+                raw = {k: dev(ck[f"raw_{k}"], v) for k, v in raw.items()}
+                best_loss, save_loss = float(ck["best_loss"]), float(ck["save_loss"])
+                waits, i0 = int(ck["waits"]), int(ck["iteration"]) + 1
+                for k in hists:
+                    if f"hist_{k}" in ck.files:
+                        h = ck[f"hist_{k}"]
+                        hists[k] = [float(v) for v in h] if k == "loss_hist" else list(h)
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        def save_checkpoint(raw_ck, opt_ck, iteration):
+            arrays = {"best_loss": best_loss, "save_loss": save_loss, "waits": waits,
+                      "iteration": iteration}
+            for k in raw_ck:
+                arrays[f"raw_{k}"] = host(raw_ck[k])
+                arrays[f"best_{k}"] = host(best_raw[k])
+                arrays[f"ss_{k}"] = host(opt_ck.step_sizes[k])
+                arrays[f"pg_{k}"] = host(opt_ck.prev_grad[k])
+            for k, v in hists.items():
+                arrays[f"hist_{k}"] = np.asarray(v) if v else np.zeros((0,))
+            np.savez(checkpoint_path, **arrays)
+
+        def bookkeep(it, loss_f, term1, term2, raw_pre):
+            """One iteration's host logic; True when the fit stops here."""
+            nonlocal best_loss, best_raw, save_loss, waits
+            if loss_f < best_loss:
+                best_loss, best_raw = loss_f, raw_pre
+            if (save_loss - loss_f) > logtol:
+                waits, save_loss = 0, best_loss
+            else:
+                waits += 1
+            stop = it == iterations or waits == stop_crit_wait_iterations
+            if store["loss"]:
+                hists["loss_hist"].append(-loss_f if loss_metric == "MLL" else loss_f)
+            for k in ("scale", "lengthscales", "noise"):
+                if store[k]:
+                    hists[f"{k}_hist"].append(host(self.params[k].from_raw(raw_pre[k])))
+            if store["task_kernel"]:
+                hists["task_kernel_hist"].append(host(self._task_gram(raw_pre)))
+            if verbose and (it % verbose == 0 or stop):
+                print(" " * verbose_indent + "%16.2e | %-10.2e | %-10.2e | %-10.2e"
+                      % (it, loss_f, term1, term2))
+            return stop
+
+        i, stopped = i0, False
+        while i <= iterations and not stopped:
+            k_eff = min(K, iterations + 1 - i)
+            steps, stats = self._fit_steps(loss_and_grad, raw, opt_state, fit_data,
+                                           trainable, k_eff)
+            for j, (raw_pre, raw_post, opt_post) in enumerate(steps):
+                it = i + j
+                if bookkeep(it, *stats[j], raw_pre):
+                    stopped, i = True, it
+                    if checkpoint_path is not None:
+                        save_checkpoint(raw_post, opt_post, it)
+                    break
+                if checkpoint_path is not None and (it + 1) % checkpoint_every == 0:
+                    save_checkpoint(raw_post, opt_post, it)
+            if not stopped:
+                _, raw, opt_state = steps[-1]
+                i += k_eff
+        self._set_raw(best_raw)
+        data = {"iterations": i}
+        for k, v in hists.items():
+            data[k] = np.stack(v) if len(v) else np.asarray(v)
+        return data
+
+    @staticmethod
+    def _fit_steps(loss_and_grad, raw, opt_state, data, trainable, k: int):
+        """``k`` fit steps back to back.  Returns the steps' ``(raw before,
+        raw after, Rprop state after)`` and their ``(loss, term1, term2)``
+        as host floats, fetched from the device once."""
+        steps, stats = [], []
+        for _ in range(k):
+            loss, terms, grads = loss_and_grad(raw, data)
+            with torch.no_grad():
+                raw_n, opt_n = rprop_update(grads, opt_state, raw, trainable)
+            stats.append(torch.stack([loss, *terms]))
+            steps.append((raw, raw_n, opt_n))
+            raw, opt_state = raw_n, opt_n
+        return steps, torch.stack(stats).tolist()
+
+    def _fit_data(self):
+        """Tensors handed to the loss besides the parameters (None: none)."""
+        return None
+
+    def _solver_pure(self, raw, data=None):
+        """Solver handle built from explicit raw parameters (differentiable)."""
+        raise NotImplementedError
+
+    def _make_loss_fn(self, metric, masks, d_out, mll_const, cv_weights):
+        """``loss_and_grad(raw, data) -> (loss, (term1, term2), grads)`` of
+        the chosen loss over the raw parameters: the loss and its terms as
+        0-d tensors (the terms NaN where the metric has none), ``grads`` one
+        tensor per parameter, zero for those that are not trained."""
+        if masks is not None:
+            raise NotImplementedError("masks are not ported yet (ROADMAP queue 1 item 5)")
+        trainable = {k: p.trainable for k, p in self.params.items()}
+        cv_w = torch.as_tensor(np.asarray(cv_weights, dtype=np.float64), dtype=self.dtype,
+                               device=self.device)
+
+        def loss_terms(raw, data):
+            solver = self._solver_pure(raw, data)
+            if metric == "MLL":
+                norm_term, logdet = solver.norm_logdet_terms()
+                term1 = norm_term.sum()
+                term2 = d_out / float(np.prod(logdet.shape)) * logdet.sum()
+                return 0.5 * (term1 + term2 + mll_const), term1, term2
+            if metric == "GCV":
+                numer, denom = solver.gcv_terms()
+                return (numer / denom).sum(), numer.sum(), denom.sum()
+            coeffs, inv_diag = solver.coeffs(), solver.inv_diag()
+            loss = ((coeffs / inv_diag) ** 2 * cv_w).sum(-1, keepdim=True).sum()
+            nan = torch.full((), math.nan, dtype=loss.dtype, device=loss.device)
+            return loss, nan, nan
+
+        def loss_and_grad(raw, data):
+            with torch.enable_grad():
+                leaves = {k: v.detach().requires_grad_(trainable[k]) for k, v in raw.items()}
+                loss, term1, term2 = loss_terms(leaves, data)
+                keys = [k for k in leaves if trainable[k]]
+                gs = (torch.autograd.grad(loss, [leaves[k] for k in keys], allow_unused=True)
+                      if keys else ())
+            grads = {k: torch.zeros_like(v) for k, v in raw.items()}
+            for k, g in zip(keys, gs):
+                if g is not None:
+                    grads[k] = g
+            return loss.detach(), (term1.detach(), term2.detach()), grads
+
+        return loss_and_grad

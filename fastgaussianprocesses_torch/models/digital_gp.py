@@ -2,7 +2,7 @@
 digitally-shift-invariant (weighted-Walsh series) kernels (counterpart of
 ``fastgaussianprocesses_tpu/models/digital_gp.py``).
 
-O(n log n) posterior queries via the orthonormal fast Walsh-Hadamard
+O(n log n) fits and posterior queries via the orthonormal fast Walsh-Hadamard
 transform: on the CUDA card through kernel K4 (``ops/fwht``), on the CPU
 through its plain version.  The general solver ``models/fast._FastSolver``
 serves it.
@@ -13,6 +13,7 @@ import torch
 
 from ..kernels import series
 from ..ops import transforms as tr
+from ..ops.bitops import log2_int
 from ..ops.walsh_closed import MAX_ALPHA
 from ..points.digital_net import DigitalNetB2
 from .fast import AbstractFastGP
@@ -74,6 +75,12 @@ class FastGPDigitalNetB2(AbstractFastGP):
 
     def get_omega(self, m):
         return 1.0
+
+    _char_kind = "walsh"
+
+    def _point_class(self, task, n_l, r_l):
+        """Class of point i for exact inverse diagonals: its top log2(r_l) bits."""
+        return np.arange(n_l) >> (log2_int(n_l) - log2_int(r_l))
 
     @property
     def _xb_int_dtype(self):

@@ -1,9 +1,11 @@
-"""Fast GP engine shared by the lattice (FFT) and digital-net (FWHT) models,
-serving half (counterpart of ``fastgaussianprocesses_tpu/models/fast.py``).
+"""Fast GP engine shared by the lattice (FFT) and digital-net (FWHT) models
+(counterpart of ``fastgaussianprocesses_tpu/models/fast.py``).
 
 Everything on the training side runs in frequency ("tilde") space in
-O(n log n): eigenvalues are transforms of first Gram columns and posterior
-cubature reads the zero-frequency bin.  Three single-task solvers are ported:
+O(n log n): eigenvalues are transforms of first Gram columns, the MLL, GCV
+and CV losses are sums over them, and posterior cubature reads the
+zero-frequency bin.  Three single-task solvers are ported, each
+differentiable in the raw hyperparameters (``fit``):
 
 * ``_PermSpectrumSolver`` -- lattice, full spectrum in the permuted bin order
   of ``ops/perm_fft`` (kernels K1-K3), chosen on the CUDA card in float32 for
@@ -42,15 +44,22 @@ def _eigenvalues(model, raw, n0, k1p, ft):
     return lam, kmat_tasks, scale
 
 
+def _k1parts(model, data, n0):
+    """The first column's series parts: from the fit's ``data`` where given,
+    else from the model's cache."""
+    return data[0][0] if data is not None else model._get_k1parts_lam(0, 0, n0)
+
+
 class _FastSolver:
     """Frequency-space solver handle for one (params, n) instance over the
-    model's ``_ft`` / ``_ift`` hooks, serving half, one task.
+    model's ``_ft`` / ``_ift`` hooks, one task.
 
     The eigenvalues are recomputed from the cached series parts for every
     handle, as in the JAX package (one transform of the first column).
+    ``data``: the fit's ``(k1parts, ytildes)`` (``AbstractFastGP._fit_data``).
     """
 
-    def __init__(self, model, raw, n):
+    def __init__(self, model, raw, n, data=None):
         fs.require_single_task(model.num_tasks)
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
@@ -58,9 +67,10 @@ class _FastSolver:
             raise ValueError("all tasks need data (or a future n) for fast solves")
         self.task_order, self.inv_task_order = fs.sort_tasks(self.n)
         self.n_sorted = tuple(int(self.n[o]) for o in self.task_order)
+        self._data = data
         n0 = self.n_sorted[0]
         lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, model._get_k1parts_lam(0, 0, n0), model._ft_lam)
+            model, raw, n0, _k1parts(model, data, n0), model._ft_lam)
         self.factor = fs.factorize({(0, 0): lam}, self.n_sorted, self.task_order,
                                    self.inv_task_order)
 
@@ -68,26 +78,50 @@ class _FastSolver:
         offs = np.concatenate([[0], np.cumsum(self.n)])
         return [ycat[..., offs[l]:offs[l + 1]] for l in range(len(self.n))]
 
-    # ``pre_permuted`` is part of the solver protocol; no model served by this
-    # solver reorders its query columns (``_train_col_perm`` is None), so the
-    # transforms ignore it
+    # ``pre_permuted``: the rows are in the model's query column order, so the
+    # model's ``_ft_q`` / ``_ift_q`` may skip a gather (the output stays in
+    # that order)
     def gram_matrix_solve(self, ycat, extra_ndim=0, pre_permuted=False):
         """Real-space solve ``K^-1 y`` along the last axis."""
-        yst = [self.model._ft(y) for y in self._split(ycat)]
+        yst = [self.model._ft_q(y, pre_permuted) for y in self._split(ycat)]
         zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
-        return _cat([torch.real(self.model._ift(z)) for z in zst], -1)
+        return _cat([torch.real(self.model._ift_q(z, pre_permuted)) for z in zst], -1)
 
     def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
         """Diagonal of ``Y K^-1 Y^T`` for stacked rows ``ycat``, in tilde space:
         the transforms are unitary, so ``y^T K^-1 y = <y~, z~>`` (Parseval)."""
-        yst = [self.model._ft(y) for y in self._split(ycat)]
+        yst = [self.model._ft_q(y, pre_permuted) for y in self._split(ycat)]
         zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
         return sum(torch.real(a.conj() * b).sum(-1) for a, b in zip(yst, zst))
 
+    def _ytildes(self):
+        if self._data is not None:
+            return list(self._data[1])
+        return [self.model._get_ytilde(l, int(self.n[l])) for l in range(self.model.num_tasks)]
+
+    def norm_logdet_terms(self):
+        """The MLL's quadratic and log-determinant terms, (..., 1) each."""
+        yts = self._ytildes()
+        yt, zt = _cat(yts, -1), _cat(fs.solve_tilde(self.factor, yts), -1)
+        norm = torch.real(yt.conj() * zt).sum(-1, keepdim=True)
+        return norm, self.factor.logdet[..., None]
+
+    def gcv_terms(self):
+        """Generalized cross-validation numerator and denominator."""
+        zt = _cat(fs.solve_tilde(self.factor, self._ytildes()), -1)
+        numer = torch.real(zt.conj() * zt).sum(-1, keepdim=True)
+        denom = ((fs.trace_inverse(self.factor) / float(self.n.sum())) ** 2)[..., None]
+        return numer, denom
+
     def coeffs(self):
-        yts = [self.model._get_ytilde(l, int(self.n[l])) for l in range(self.model.num_tasks)]
-        zts = fs.solve_tilde(self.factor, yts)
+        zts = fs.solve_tilde(self.factor, self._ytildes())
         return _cat([torch.real(self.model._ift(z)) for z in zts], -1)
+
+    def inv_diag(self):
+        """Exact diagonal of ``K^-1`` in point space."""
+        cols = fs.inv_diag_pointspace(self.factor, self.model._char_kind,
+                                      self.model._point_class)
+        return _cat(cols, -1)
 
     def dc_block(self):
         return fs.dc_block(self.factor)
@@ -101,14 +135,15 @@ class _HalfSpectrumSolver:
     (weight 2 except bins 0 and n/2) and every transform an rfft/irfft.
     """
 
-    def __init__(self, model, raw, n):
+    def __init__(self, model, raw, n, data=None):
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
         self.task_order, self.inv_task_order = (0,), (0,)
         n0 = int(self.n[0])
         self.n_sorted = (n0,)
+        self._data = data
         self.lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, model._get_k1parts_lam(0, 0, n0), model._ft_lam_half)
+            model, raw, n0, _k1parts(model, data, n0), model._ft_lam_half)
         self.logdet = self._wsum(torch.log(self.lam.abs()))
         self.factor = fs.FastFactor(
             lam_eff=None, inv=None, logdet=self.logdet, n_sorted=self.n_sorted,
@@ -126,15 +161,38 @@ class _HalfSpectrumSolver:
         return lam
 
     def _ytilde_half(self):
+        if self._data is not None:
+            return self._data[1][0]
         return self.model._get_ytilde_half(0, int(self.n[0]))
+
+    def norm_logdet_terms(self):
+        yt = self._ytilde_half()
+        norm = self._wsum(torch.real(torch.conj(yt) * (yt / self.lam)))[..., None]
+        return norm, self.logdet[..., None]
+
+    def gcv_terms(self):
+        zt = self._ytilde_half() / self.lam
+        numer = self._wsum(torch.real(torch.conj(zt) * zt))[..., None]
+        tr_inv = self._wsum(torch.real(1.0 / self.lam))
+        return numer, ((tr_inv / float(self.n.sum())) ** 2)[..., None]
 
     def coeffs(self):
         return self.model._ift_half(self._ytilde_half() / self.lam, int(self.n[0]))
+
+    def gram_matrix_solve(self, ycat, extra_ndim=0, pre_permuted=False):
+        yst = self.model._ft_half_q(ycat, pre_permuted)
+        return self.model._ift_half_q(yst / self._lam_b(extra_ndim), int(self.n[0]),
+                                      pre_permuted)
 
     def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
         yst = self.model._ft_half_q(ycat, pre_permuted)
         zt = yst / self._lam_b(extra_ndim)
         return self._wsum(torch.real(torch.conj(yst) * zt))
+
+    def inv_diag(self):
+        n0 = int(self.n[0])
+        val = self._wsum(torch.real(1.0 / self.lam)) / float(n0)
+        return val[..., None].expand(val.shape + (n0,))
 
     def dc_block(self):
         return (1.0 / self.lam[..., 0])[..., None, None]
@@ -150,14 +208,15 @@ class _PermSpectrumSolver:
     for bin the eigenvalues match the JAX package's ``_PermSpectrumSolver``.
     """
 
-    def __init__(self, model, raw, n):
+    def __init__(self, model, raw, n, data=None):
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
         self.task_order, self.inv_task_order = (0,), (0,)
         n0 = int(self.n[0])
         self.n_sorted = (n0,)
+        self._data = data
         self.lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, model._get_k1parts_lam(0, 0, n0), model._ft_lam_perm)
+            model, raw, n0, _k1parts(model, data, n0), model._ft_lam_perm)
         self.logdet = torch.log(self.lam.abs()).sum(-1)
         self.factor = fs.FastFactor(
             lam_eff=None, inv=None, logdet=self.logdet, n_sorted=self.n_sorted,
@@ -170,10 +229,33 @@ class _PermSpectrumSolver:
         return lam
 
     def _ytilde(self):
+        if self._data is not None:
+            return self._data[1][0]
         return self.model._get_ytilde_perm(0, int(self.n[0]))
+
+    def norm_logdet_terms(self):
+        yt = self._ytilde()
+        norm = torch.real(torch.conj(yt) * (yt / self.lam)).sum(-1)[..., None]
+        return norm, self.logdet[..., None]
+
+    def gcv_terms(self):
+        zt = self._ytilde() / self.lam
+        numer = torch.real(torch.conj(zt) * zt).sum(-1)[..., None]
+        tr_inv = torch.real(1.0 / self.lam).sum(-1)
+        return numer, ((tr_inv / float(self.n.sum())) ** 2)[..., None]
 
     def coeffs(self):
         return self.model._ift_perm_coeffs(self._ytilde() / self.lam, int(self.n[0]))
+
+    def gram_matrix_solve(self, ycat, extra_ndim=0, pre_permuted=False):
+        yst = self.model._ft_perm_q(ycat, pre_permuted)
+        return self.model._ift_perm_q(yst / self._lam_b(extra_ndim), int(self.n[0]),
+                                      pre_permuted)
+
+    def inv_diag(self):
+        n0 = int(self.n[0])
+        val = torch.real(1.0 / self.lam).sum(-1) / float(n0)
+        return val[..., None].expand(val.shape + (n0,))
 
     def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
         if pre_permuted and self.lam.ndim == 1:
@@ -190,14 +272,14 @@ class _PermSpectrumSolver:
         return (1.0 / self.lam[..., 0])[..., None, None]
 
 
-def make_solver(model, raw, n):
+def make_solver(model, raw, n, data=None):
     """Solver factory: permuted-spectrum kernels, then half spectrum, then the
-    general solver."""
+    general solver.  ``data``: the fit's ``(k1parts, ytildes)``."""
     if model._use_perm_spectrum(n):
-        return _PermSpectrumSolver(model, raw, n)
+        return _PermSpectrumSolver(model, raw, n, data=data)
     if model._use_half_spectrum(n):
-        return _HalfSpectrumSolver(model, raw, n)
-    return _FastSolver(model, raw, n)
+        return _HalfSpectrumSolver(model, raw, n, data=data)
+    return _FastSolver(model, raw, n, data=data)
 
 
 class AbstractFastGP(AbstractGP):
@@ -220,14 +302,24 @@ class AbstractFastGP(AbstractGP):
     # -- concrete-model hooks -------------------------------------------
     def _ft(self, x):
         """The general solver's orthonormal transform of the last axis."""
-        raise NotImplementedError(
-            f"{type(self).__name__}: the full-spectrum transform `_ft` is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+        raise NotImplementedError
 
     def _ift(self, x):
-        raise NotImplementedError(
-            f"{type(self).__name__}: the full-spectrum transform `_ift` is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+        raise NotImplementedError
+
+    # query-row transforms: ``pre_permuted`` rows are already in the model's
+    # query column order (``_train_col_perm``), so a model may skip a gather;
+    # the defaults ignore the flag
+    def _ft_q(self, v, pre_permuted=False):
+        return self._ft(v)
+
+    def _ift_q(self, v, pre_permuted=False):
+        return self._ift(v)
+
+    def _point_class(self, task, n_l, r_l):
+        """Class in [0, r_l) of each of the task's points among the r_l
+        coupled frequencies (exact inverse diagonals)."""
+        raise NotImplementedError
 
     def get_omega(self, m):
         """Twiddles of the radix-2 doubling merge from 2^m to 2^(m+1) points."""
@@ -369,14 +461,7 @@ class AbstractFastGP(AbstractGP):
                 self._get_k1parts_lam(min(to0, to1), max(to0, to1), int(n[to0]))
 
     def _warm_for_fit(self):
-        self._warm_k1parts(self.n)
-        if self._use_perm_spectrum(self.n):
-            self._get_ytilde_perm(0, int(self.n[0]))
-        elif self._use_half_spectrum(self.n):
-            self._get_ytilde_half(0, int(self.n[0]))
-        else:
-            fs.require_single_task(self.num_tasks)
-            self._get_ytilde(0, int(self.n[0]))
+        self._fit_data()
 
     def _warm_extra(self, n):
         # future-n queries need first-column caches at the projected sizes
@@ -384,6 +469,23 @@ class AbstractFastGP(AbstractGP):
 
     def _query_solver_any(self, raw, n):
         return make_solver(self, raw, np.asarray(n, dtype=np.int64))
+
+    def _fit_data(self):
+        """``(k1parts, ytildes)``: the data the loss reads, from the caches
+        (built on first use); the ytilde leg in the chosen solver's form
+        (permuted, half or full spectrum)."""
+        fs.require_single_task(self.num_tasks)
+        n0 = int(self.n[0])
+        if self._use_perm_spectrum(self.n):
+            yt = self._get_ytilde_perm(0, n0)
+        elif self._use_half_spectrum(self.n):
+            yt = self._get_ytilde_half(0, n0)
+        else:
+            yt = self._get_ytilde(0, n0)
+        return (self._get_k1parts_lam(0, 0, n0),), (yt,)
+
+    def _solver_pure(self, raw, data=None):
+        return make_solver(self, raw, self.n, data=data)
 
     # -- data ingestion guards -------------------------------------------
     def get_x_next(self, n, task=None):

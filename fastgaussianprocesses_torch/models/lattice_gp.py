@@ -2,9 +2,10 @@
 shift-invariant (Bernoulli-polynomial series) kernels (counterpart of
 ``fastgaussianprocesses_tpu/models/lattice_gp.py``).
 
-O(n log n) posterior queries via the orthonormal bit-reversed FFT: on the
-CUDA card in float32 through the permuted-spectrum kernels K1-K3
-(``ops/perm_fft``), elsewhere through ``torch.fft`` on the half spectrum.
+O(n log n) fits and posterior queries via the orthonormal bit-reversed FFT:
+on the CUDA card in float32 through the permuted-spectrum kernels K1-K3
+(``ops/perm_fft``), elsewhere through ``torch.fft`` on the half spectrum
+(the full spectrum at n = 1).
 """
 
 import numpy as np
@@ -57,6 +58,25 @@ class FastGPLattice(AbstractFastGP):
     def _ftout_dtype(self):
         return torch.complex128 if self.dtype == torch.float64 else torch.complex64
 
+    def _ft(self, x):
+        return tr.ft_stable_lattice(x)
+
+    def _ift(self, x):
+        return tr.ift_stable_lattice(x)
+
+    def _ft_lam(self, k1):
+        """The first column's parts are cached bit-reversed: a plain FFT."""
+        return tr.ft_stable_plain_fft(k1)
+
+    def get_omega(self, m):
+        return tr.get_omega_lattice(m, dtype=self._ftout_dtype()).to(self.device)
+
+    _char_kind = "fourier"
+
+    def _point_class(self, task, n_l, r_l):
+        """Class of point i for exact inverse diagonals: rho_m(i) mod r_l."""
+        return bit_reverse_permutation(log2_int(n_l))[:n_l] % r_l
+
     def _ominus(self, a, b):
         return series.lattice_ominus(a, b)
 
@@ -93,6 +113,9 @@ class FastGPLattice(AbstractFastGP):
     def _ft_half_q(self, v, pre_permuted=False):
         return tr.rfft_stable_plain(v) if pre_permuted else self._ft_half(v)
 
+    def _ift_half_q(self, v, n, pre_permuted=False):
+        return tr.irfft_plain(v, n) if pre_permuted else self._ift_half(v, n)
+
     # permuted-spectrum hooks: same bit-reversed input vector space as the
     # plain-FFT path, spectrum in the kernels' fixed permuted bin order
     def _ft_lam_perm(self, k1):
@@ -108,6 +131,17 @@ class FastGPLattice(AbstractFastGP):
 
     def _ft_perm_q(self, v, pre_permuted=False):
         return tr.pfft_stable(v) if pre_permuted else self._ft_perm(v)
+
+    def _ift_perm_q(self, z, n, pre_permuted=False):
+        out = tr.pifft_ortho_real(z, n)
+        return out if pre_permuted else out.index_select(-1, tr.bitrev_index(int(n), z.device))
+
+    # gather-free transforms of query rows in the training columns' bit-reversed order
+    def _ft_q(self, v, pre_permuted=False):
+        return tr.ft_stable_plain_fft(v) if pre_permuted else self._ft(v)
+
+    def _ift_q(self, v, pre_permuted=False):
+        return tr.ift_stable_plain(v) if pre_permuted else self._ift(v)
 
     # cross-kernel queries take the TRAINING columns in bit-reversed order,
     # so the per-chunk transform needs no gather along the long axis

@@ -1,10 +1,10 @@
-"""Hyperparameter specification: shapes and transform pairs (counterpart of
-``fastgaussianprocesses_tpu/models/params.py``; the requires-grad flags come
-with the fit slice).
+"""Hyperparameter specification: shapes, transform pairs, trainability
+(counterpart of ``fastgaussianprocesses_tpu/models/params.py``).
 
 Each hyperparameter has a value shape whose leading dims must be a suffix of
-``shape_batch`` and a (to_raw, from_raw) transform pair (default log/exp for
-positive parameters).
+``shape_batch``, a (to_raw, from_raw) transform pair (default log/exp for
+positive parameters) and a trainable flag, the per-leaf mask of the Rprop
+update (``fit/rprop``).
 """
 
 from typing import Callable, NamedTuple, Tuple
@@ -19,6 +19,7 @@ IDENTITY = (lambda x: x, lambda x: x)
 class Param(NamedTuple):
     raw: torch.Tensor
     from_raw: Callable
+    trainable: bool
 
     @property
     def value(self):
@@ -33,7 +34,7 @@ def _check_batch_suffix(shape: Tuple[int, ...], shape_batch: Tuple[int, ...],
                          f"shape_batch {shape_batch}")
 
 
-def make_param(name: str, value, default_shape, tfs, shape_batch,
+def make_param(name: str, value, default_shape, tfs, trainable: bool, shape_batch,
                ndim_value: int, dtype, device, positive: bool = True,
                allow_nonneg: bool = False) -> Param:
     """Validate and build a parameter following the reference shape rules.
@@ -57,4 +58,4 @@ def make_param(name: str, value, default_shape, tfs, shape_batch,
     else:
         raw_np = np.asarray(to_raw(torch.as_tensor(np_value)))
     return Param(raw=torch.as_tensor(raw_np, dtype=dtype, device=device),
-                 from_raw=from_raw)
+                 from_raw=from_raw, trainable=bool(trainable))

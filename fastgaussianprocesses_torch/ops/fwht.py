@@ -354,14 +354,37 @@ def _fwht_cuda(x: torch.Tensor, mean: torch.Tensor = None, plan: FwhtPlan = None
     return out
 
 
+def _fwht_rows(x: torch.Tensor, mean: torch.Tensor = None) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return fwht_plain(x if mean is None else x - mean[..., None])
+    return _fwht_cuda(x.contiguous(), None if mean is None else mean.contiguous())
+
+
+class _Fwht(torch.autograd.Function):
+    """K4.  ``H`` is symmetric and orthonormal, so the backward of
+    ``y = H (x - mean 1)`` is ``grad_x = H g`` (one more K4 launch) and, as
+    ``1^T H = sqrt(n) e_0^T``, ``grad_mean = -sqrt(n) g[..., 0]``."""
+
+    @staticmethod
+    def forward(ctx, x, mean):
+        ctx.has_mean = mean is not None
+        return _fwht_rows(x, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = fwht(g) if ctx.needs_input_grad[0] else None
+        gm = None
+        if ctx.has_mean and ctx.needs_input_grad[1]:
+            gm = g[..., 0] * -math.sqrt(g.shape[-1])
+        return gx, gm
+
+
 def fwht(x: torch.Tensor, mean: torch.Tensor = None) -> torch.Tensor:
     """K4: orthonormal FWHT of the last axis (length a power of two) of
     ``x``, or of ``x - mean[..., None]`` (``mean`` of shape ``x.shape[:-1]``).
     CPU tensors take the plain version; any other tensor launches the kernel
-    or raises."""
+    or raises.  Differentiable in ``x`` and ``mean`` (the backward is K4)."""
     n = x.shape[-1]
     if n < 1 or n & (n - 1):
         raise ValueError(f"fwht: the last axis must have a power-of-two length, got {n}")
-    if x.device.type == "cpu":
-        return fwht_plain(x if mean is None else x - mean[..., None])
-    return _fwht_cuda(x, mean)
+    return _Fwht.apply(x, mean)

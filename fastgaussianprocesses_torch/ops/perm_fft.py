@@ -40,6 +40,14 @@ radix-16 passes, each op two launches:
   fixed order; ``torch.sum`` over them follows, so the result is
   deterministic (no atomics).
 
+Autograd: :func:`pfft` (on real rows) and :func:`pifft_real` are autograd
+Functions, each the other's backward, so a differentiated loss on the card
+runs K1 and K2 and nothing else: the backward of ``pfft`` is
+``n * pifft_real(g)`` and that of ``pifft_real`` is ``pfft(g) / n``, in
+PyTorch's convention for complex gradients (``dL/dRe + i dL/dIm``).  The
+backward of ``pfft`` on complex rows would need K2 with a complex output
+and raises; :func:`pfft_quad` has no backward and raises if asked for one.
+
 Bound on the H100 (by bytes): ``pfft`` of a real n = 2^20 row reads 4 MB and
 writes 8 MB, ``pifft_real`` the reverse, ~3.6 us at 3.35 TB/s; K3 reads the
 row once.  The (R, A, B) complex scratch between the two launches (8 MB at
@@ -543,7 +551,7 @@ def quad_partials(x, wk, n: int, mean):
 
 
 # ---------------------------------------------------------------------------
-# public ops (complex in/out)
+# public ops (complex in/out), differentiable
 # ---------------------------------------------------------------------------
 
 def _flatten_batch(x, n):
@@ -551,22 +559,70 @@ def _flatten_batch(x, n):
     return x.reshape(-1, n), lead
 
 
+def _owned(t):
+    """``t``, copied if it is a view: an autograd Function must return tensors
+    that later in-place updates may change (``pfft_stable``'s DC bump)."""
+    return t.clone() if t._base is not None else t
+
+
+def _pfft_rows(x2, n: int):
+    return _owned(pfft_plain(x2, n)) if x2.device.type == "cpu" else _pfft_cuda(x2, n)
+
+
+def _pifft_real_rows(X2, n: int):
+    return (_owned(pifft_real_plain(X2, n)) if X2.device.type == "cpu"
+            else _pifft_real_cuda(X2, n))
+
+
+class _Pfft(torch.autograd.Function):
+    """K1 on (R, n) rows.  In PyTorch's convention (``grad = dL/dRe + i
+    dL/dIm``) the backward of ``y = P F x`` for real ``x`` is
+    ``Re(F^H P^T g) = n * pifft_real(g)``: K2, with no conjugation (the JAX
+    package's ``n conj(pifft(conj g))`` is the same map in JAX's
+    convention)."""
+
+    @staticmethod
+    def forward(ctx, x2, n):
+        ctx.n, ctx.dtype, ctx.complex_in = n, x2.dtype, x2.is_complex()
+        return _pfft_rows(x2, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.complex_in:
+            raise NotImplementedError(
+                "the backward of pfft on complex rows needs pifft with complex output, "
+                "which kernel K2 does not have yet (ROADMAP queue 2, K2)")
+        return (pifft_real(g, ctx.n) * float(ctx.n)).to(ctx.dtype), None
+
+
+class _PifftReal(torch.autograd.Function):
+    """K2 on (R, n) spectra.  The backward of ``y = Re(F^-1 P^T X)`` is
+    ``P F^-H g = pfft(g) / n`` on the real cotangent: K1."""
+
+    @staticmethod
+    def forward(ctx, X2, n):
+        ctx.n, ctx.dtype = n, X2.dtype
+        return _pifft_real_rows(X2, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (pfft(g, ctx.n) * (1.0 / ctx.n)).to(ctx.dtype), None
+
+
 def pfft(x, n: int):
     """Unnormalized DFT of the last axis in PERMUTED spectrum order
     (``spectrum_perm``), through K1 on the card.  ``x`` real or complex;
-    returns complex64."""
+    returns complex64.  Differentiable for real ``x`` (its backward is K2)."""
     x2, lead = _flatten_batch(x, n)
-    out = pfft_plain(x2, n) if x2.device.type == "cpu" else _pfft_cuda(x2, n)
-    return out.reshape(lead + (n,))
+    return _Pfft.apply(x2, n).reshape(lead + (n,))
 
 
 def pifft_real(X, n: int):
     """Real part of the inverse of :func:`pfft` (includes 1/n), through K2 on
     the card: permuted spectrum in, natural order out, float32, without
-    forming the imaginary part."""
+    forming the imaginary part.  Differentiable (its backward is K1)."""
     X2, lead = _flatten_batch(X, n)
-    out = pifft_real_plain(X2, n) if X2.device.type == "cpu" else _pifft_real_cuda(X2, n)
-    return out.reshape(lead + (n,))
+    return _PifftReal.apply(X2, n).reshape(lead + (n,))
 
 
 def pfft_quad(x, w, n: int):
@@ -576,7 +632,10 @@ def pfft_quad(x, w, n: int):
     normalization is folded in.  The stabilization is the JAX package's:
     the row mean is taken here and subtracted from the row (by the kernel as
     it loads the row), and the exact DC term ``w_0 * n * mean^2`` is added
-    here.  Not differentiable (query paths only)."""
+    here.  Not differentiable (query paths only): raises if an input
+    requires grad, rather than cut the graph."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError("pfft_quad has no backward (query paths only)")
     A, Bh, Bl, _ = _plan(n)
     x2, lead = _flatten_batch(x, n)
     x2 = x2.to(torch.float32).contiguous()

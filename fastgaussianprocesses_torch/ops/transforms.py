@@ -5,6 +5,10 @@ matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
   ``ops/perm_fft`` (kernels K1-K3 on the card), float32, n = 2^14..2^22.
 * ``rfft_stable_*`` / ``irfft_*`` -- the Hermitian half spectrum over
   ``torch.fft``, for float64 and for n below 2^14.
+* ``ft_stable_lattice`` / ``ift_stable_lattice`` -- the full spectrum over
+  ``torch.fft`` (the general solver's lattice transform, which a single-task
+  lattice reaches only at n = 1), and their gather-free forms
+  ``ft_stable_plain_fft`` / ``ift_stable_plain``.
 * ``ft_stable_fwht`` -- the orthonormal FWHT of ``ops/fwht`` (kernel K4 on
   the card, centring the rows as it loads them), self-inverse;
   ``merge_doubling`` grows a transform from n to 2n.
@@ -12,6 +16,11 @@ matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
 The stabilized wrappers subtract the mean before transforming and add
 ``mean * sqrt(n)`` back into the DC bin, avoiding cancellation for
 near-constant inputs.
+
+Every transform is differentiable: ``pfft`` / ``pifft_real`` and ``fwht``
+are autograd Functions whose backward passes are the kernels again (K2 for
+K1 and K1 for K2, K4 for K4).  The in-place updates below touch only
+tensors that no backward reads.
 """
 
 import functools
@@ -21,7 +30,7 @@ import torch
 
 from .bitops import bit_reverse_permutation, log2_int
 from .fwht import fwht
-from .perm_fft import pfft, pifft_real
+from .perm_fft import _cdtype, pfft, pifft_real
 
 
 def _stabilize(transform, x):
@@ -49,7 +58,7 @@ def pfft_stable(x: torch.Tensor) -> torch.Tensor:
 
 def pifft_ortho_real(z: torch.Tensor, n: int) -> torch.Tensor:
     """Real part of the orthonormal inverse of :func:`pfft_stable`'s transform;
-    output in bit-reversed point order.  Query paths only."""
+    output in bit-reversed point order."""
     return pifft_real(z, n).mul_(math.sqrt(n))
 
 
@@ -85,6 +94,63 @@ def irfft_br(x_half: torch.Tensor, n: int) -> torch.Tensor:
     if n == 1:
         return x_half.real
     return irfft_plain(x_half, n).index_select(-1, bitrev_index(n, x_half.device))
+
+
+def _fft_plain(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal FFT of input already in bit-reversed order."""
+    n = x.shape[-1]
+    return torch.fft.fft(x.to(_cdtype(x.dtype))).mul_(1.0 / math.sqrt(n))
+
+
+def _ifft_plain(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal IFFT, output left in bit-reversed order."""
+    return torch.fft.ifft(x).mul_(math.sqrt(x.shape[-1]))
+
+
+def fftbr(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal FFT of the bit-reverse-permuted input:
+    ``FFT_ortho(x[rho])``, which diagonalizes natural-order lattice Gram
+    matrices."""
+    n = x.shape[-1]
+    if n == 1:
+        return x.to(_cdtype(x.dtype))
+    return _fft_plain(x.index_select(-1, bitrev_index(n, x.device)))
+
+
+def ifftbr(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`fftbr`."""
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    return _ifft_plain(x).index_select(-1, bitrev_index(n, x.device))
+
+
+def ft_stable_lattice(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred :func:`fftbr`."""
+    return _stabilize(fftbr, x)
+
+
+def ift_stable_lattice(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred :func:`ifftbr`."""
+    return _stabilize(ifftbr, x)
+
+
+def ft_stable_plain_fft(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred orthonormal FFT of input already in bit-reversed order."""
+    return _stabilize(_fft_plain, x)
+
+
+def ift_stable_plain(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centred orthonormal IFFT, output left in bit-reversed order."""
+    if x.shape[-1] == 1:
+        return x
+    return _stabilize(_ifft_plain, x)
+
+
+def get_omega_lattice(m: int, dtype=torch.complex128) -> torch.Tensor:
+    """Twiddles ``exp(-i pi k / 2^m)`` of the lattice doubling merge."""
+    k = torch.arange(1 << m, dtype=torch.float64)
+    return torch.exp((-1j * math.pi) * k / (1 << m)).to(dtype)
 
 
 def _centre_on_load(transform, x):

@@ -282,15 +282,22 @@ def test_gram_matrix_solve_matches_dense():
     assert _max_rel((k @ z).numpy(), y.numpy()) < 1e-10
 
 
-def test_single_task_lattice_without_spectrum_solver_raises():
-    """A single-task lattice model at n = 1 has neither spectrum solver and
-    reaches the general solver, whose full-spectrum lattice transform is not
-    ported: it raises rather than take another path."""
-    gp = ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
-    gp.get_x_next(1)
-    gp.add_y_next(torch.zeros(1, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gp.post_mean(np.zeros((2, 2)))
+def test_single_task_lattice_at_n1_matches_jax():
+    """A single-task lattice model at n = 1 has neither spectrum solver: it
+    takes the general solver over the full-spectrum lattice transform
+    (``_ft`` / ``_ift``), and serves as the JAX package does (float64)."""
+    gt = ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
+    gj = fj.FastGPLattice(2, seed_for_seq=1)
+    x = np.asarray(gj.get_x_next(1))
+    assert np.array_equal(gt.get_x_next(1).numpy(), x)
+    gt.add_y_next(torch.from_numpy(_f_doc(x)))
+    gj.add_y_next(jnp.asarray(_f_doc(x)))
+    assert isinstance(gt._solver(), _FastSolver)
+    xq = np.random.default_rng(2).uniform(size=(5, 2))
+    np.testing.assert_allclose(gt.post_mean(xq).numpy(), np.asarray(gj.post_mean(xq)), rtol=1e-8)
+    np.testing.assert_allclose(gt.post_var(xq).numpy(), np.asarray(gj.post_var(xq)), rtol=1e-8)
+    np.testing.assert_allclose(float(gt.post_cubature_var()), float(gj.post_cubature_var()),
+                               rtol=1e-8)
 
 
 @pytest.mark.cuda
