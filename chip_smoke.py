@@ -66,9 +66,45 @@ Phases; any failure raises and the exit code is not 0:
    card against autograd through ``torch.fft`` (K1/K2) or the CPU plain
    version (K4, float64 and float32) at n = 2^14, 2^20, 2^22 and R = 1, 3,
    with device times at n = 2^20, R = 1; one ``{"fit_step": ...}`` line.
-6. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
-   kernels, then K2, K1 and K4 as backwards in the fit) and, last,
-   ``{"ok": true, "device": {...}}``.
+6. Multitask, derivative-informed and fleet models, float32 on the card,
+   hyperparameters from a seed, the plain versions of K1, K2 and K4 made to
+   raise; each fit and the requests with the launch counters reset just
+   before and read just after, each call's wall time, the fit step's and
+   the first request's device busy share (``torch.profiler``) and launches,
+   peak memory:
+
+   * ``mt_dnb2``: ``FastGPDigitalNetB2(d=8, num_tasks=3)``, multi-fidelity
+     n = (2^20, 2^19, 2^18) (``examples/multitask.py``'s 4n, 2n, n; M = 7,
+     the Schur ladder), y_l = f + 0.1 l cos(2 pi x_2); ``fit(iterations=20)``,
+     ``post_mean_var`` of 1024 points for every task, ``post_cov`` of 256 x
+     256 points for every task pair, ``post_ci`` of 256 points for task 2,
+     ``post_cubature_cov()``: K4 in the fit and in serving;
+   * ``mt_lattice``: the same on ``FastGPLattice`` (``torch.fft``; no
+     ``post_cov``);
+   * ``deriv_dnb2``: ``bench.py:make_lattice_grad`` on the digital net, d = 3,
+     alpha = 3, (f, grad f) as 4 tasks at n = 2^16 each (M = 4), in float64
+     (float32 resolves it in neither package; see ``deriv_model``):
+     ``fit(iterations=20)``, ``post_mean`` of 1024 points for every task;
+   * ``fleet_lattice``: ``FastGPLattice(d=8, shape_batch=(8,))`` with its own
+     lengthscales and scale a member, n = 2^16, y_b = (b + 1) f:
+     ``fit(iterations=10)``, ``fit(iterations=4, masks=...)`` over members 1
+     and 5, ``post_mean_var`` of 4096 points: K1 (R = 8) and K2 as its
+     backward in the fit, K3 a member (R = 953) in serving; its variances
+     also timed through K1 and torch ops, the JAX package's route for a
+     batched spectrum (``fleet_var_routes``).
+
+   Then K1, K2 and K3 at n = 2^14 on 70 000 rows, past CUDA's gridDim.y cap
+   (the public ops, both sides of the 65535-row boundary against the plain
+   versions; then the kernels into NaN-filled outputs, every row written);
+   and cross-checks at n = (2^12, 2^11, 2^10) (d = 8)
+   and 2^12 (d = 3): the card's float32 against the CPU's float32 and
+   float64 (for ``deriv_dnb2``, which float32 does not resolve, the card's
+   float64 against the CPU's) on coefficients, log-determinant, MLL and its
+   gradient's signs, ``post_mean_var``, ``post_cov`` and
+   ``post_cubature_cov``; one ``{"multitask": ...}`` line.
+7. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
+   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's
+   roles) and, last, ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
 does (public API only), for the package in DIR (default: this checkout),
@@ -231,13 +267,14 @@ def check_k12(torch, tp, g):
         torch.cuda.empty_cache()
 
 
-def phase_kernels(torch, tp):
-    """Phase 3: every kernel against its plain version; times and bounds."""
+def phase_kernels(torch, tp, extra=()):
+    """Phase 3: every kernel against its plain version; times and bounds, at
+    the serving path's shapes and the ``extra`` (n, R) of phase 6."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     check_k12(torch, tp, g)
     rows = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)]:
+    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)] + list(extra):
         A, Bh, Bl, _ = tp._plan(n)
         x = torch.randn(R, n, generator=g).to(dev) + 2.0
         mx = x.mean(-1)
@@ -498,7 +535,7 @@ def np_fwht(x):
     return y * x.dtype.type(1.0 / math.sqrt(n))
 
 
-def fwht_times(torch, tf, ttr, nb, g):
+def fwht_times(torch, tf, ttr, nb, g, extra=()):
     """K4's times at the digital-net path's shapes and n = 2^14, R = 3, each a
     CUDA graph of repeated calls between events: ``warm`` calls on one input
     (in L2 when it fits), ``cold`` calls cycling through inputs larger than
@@ -506,7 +543,7 @@ def fwht_times(torch, tf, ttr, nb, g):
     ``ft_stable_fwht``.  Only the public API, so that it times an older
     checkout of the package as well (``--fwht-times``)."""
     out = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)]:
+    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)] + list(extra):
         key = f"2^{int(math.log2(n))},{R}"
         x = torch.randn(R, n, generator=g).to("cuda")
         it = 50 if R == 1 else 10
@@ -528,15 +565,15 @@ def fwht_times(torch, tf, ttr, nb, g):
     return out
 
 
-def phase_fwht(torch, tf, ttr, nb):
+def phase_fwht(torch, tf, ttr, nb, extra=()):
     """Phase 3 for K4: against its plain version, float64 numpy and the
     float32 numpy butterflies (also centring on load); times, bounds, the
     group-size sweep and the HBM rate.  ``nb``: the query chunk's row count
-    on the digital-net path."""
+    on the digital-net path; ``extra``: the (n, R) of phase 6."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     rows = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)]:
+    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)] + list(extra):
         m = int(math.log2(n))
         x = torch.randn(R, n, generator=g).to(dev) + 1.5
         k = tf.fwht(x)
@@ -568,7 +605,7 @@ def phase_fwht(torch, tf, ttr, nb):
                             plain_ms=gtime(lambda: tf.fwht_plain(x), 10 if R == 1 else 3))
         del x, k, p, km
         torch.cuda.empty_cache()
-    times = fwht_times(torch, tf, ttr, nb, g)
+    times = fwht_times(torch, tf, ttr, nb, g, extra)
     for (n, R), r in rows.items():
         m = int(math.log2(n))
         t = times[f"2^{m},{R}"]
@@ -907,6 +944,546 @@ def backward_checks(torch, tp, tf):
     return rows
 
 
+# ---- phase 6: multitask, derivative-informed and fleet models ---------------------------
+
+MT_NS = (N_MAIN, N_MAIN // 2, N_MAIN // 4)   # multi-fidelity: r = (4, 2, 1), M = 7
+N_DERIV = 1 << 16
+N_FLEET, B_FLEET = 1 << 16, 8
+NB_MT = 68                # query chunk rows of mt_dnb2 (3 x 68 rows a K4 call of its solves)
+NB_FLEET = 953            # query chunk rows of fleet_lattice (K3's rows a member)
+R_PAST_CAP = 70000        # rows of the K1-K3 launches past CUDA's gridDim.y cap of 65535
+# the card's float32 against the CPU's float64 at the cross-check sizes: 10x the
+# CPU's own float32-against-float64 differences there
+TOL64_MT_DNB2 = {"coeffs": 3e-4, "logdet": 1e-4, "mll": 1e-4, "post_mean": 1e-4,
+                 "post_var": 3e-4, "post_cov": 2e-4, "cubature_cov": 3e-5}
+TOL64_MT_LATTICE = {"coeffs": 2e-4, "logdet": 1e-5, "mll": 1e-5, "post_mean": 1e-4,
+                    "post_var": 5e-5, "post_cov": 5e-5, "cubature_cov": 5e-5}
+
+
+def _mt_y(xs):
+    """bench.py's function, fidelity l shifted by 0.1 l cos(2 pi x_2)."""
+    return [_f(x) + 0.1 * l * np.cos(2 * np.pi * x[:, 2]) for l, x in enumerate(xs)]
+
+
+def _deriv_y(xs):
+    """bench.py:make_lattice_grad's data: sin(2 pi x_0) and its gradient."""
+    return [np.sin(2 * np.pi * xs[0][:, 0])] + [
+        2 * np.pi * np.cos(2 * np.pi * x[:, 0]) * (j == 0) for j, x in enumerate(xs[1:])]
+
+
+def _seeded_raw(gp, seed=7):
+    """The model's raw hyperparameters with the noise at 1e-8 and, from a
+    seed, the lengthscales and (where it is trained) the task kernel."""
+    rng = np.random.default_rng(seed)
+    raw = {k: p.raw.detach().cpu().double().numpy() for k, p in gp.params.items()}
+    raw["lengthscales"] = rng.uniform(-0.5, 0.5, raw["lengthscales"].shape)
+    raw["noise"] = np.full(raw["noise"].shape, math.log(1e-8))
+    if gp.params["factor_task_kernel"].trainable:
+        raw["factor_task_kernel"] = rng.uniform(0.5, 1.5, raw["factor_task_kernel"].shape)
+        raw["noise_task_kernel"] = np.log(rng.uniform(0.05, 0.2, raw["noise_task_kernel"].shape))
+    return raw
+
+
+def mt_model(torch, ft, cls, ns, dtype=None, device=None):
+    """``examples/multitask.py``'s multi-fidelity setup at d = 8: one task a
+    fidelity, n_l points each."""
+    T = len(ns)
+    gp = cls(D, num_tasks=T, seed_for_seq=7, alpha=2, dtype=dtype, device=device)
+    tasks = list(range(T))
+    xs = gp.get_x_next_host(list(ns), task=tasks)
+    gp.add_y_next([torch.as_tensor(y) for y in _mt_y(xs)], task=tasks)
+    ft.load_jax_params(gp, _seeded_raw(gp))
+    return gp
+
+
+def deriv_model(torch, ft, n, dtype=None, device=None):
+    """``bench.py:make_lattice_grad`` on the digital net: (f, grad f) as 4
+    tasks at d = 3, alpha = 3, n points each (M = 4).  Its blocks are nearly
+    singular (the task kernel is pinned to all ones and adds no noise), so in
+    float32 the eigenvalue floor and the ridge decide the small eigenvalues:
+    float32 does not resolve this system, in the JAX package as in the port
+    (``tests/test_torch_derivatives_fleet.py::
+    test_grad_informed_dnb2_float32_unresolved_in_both_packages``: at n =
+    2^12 the JAX package's float32 coefficients are 0.83 of the max off its
+    float64 ones).  Phase 6 serves it in float64, the path the cross-check
+    holds."""
+    d = 3
+    derivs = [np.zeros((1, d), dtype=np.int64)] + [e[None, :] for e in np.eye(d, dtype=np.int64)]
+    gp = ft.FastGPDigitalNetB2(d, num_tasks=d + 1, seed_for_seq=7, alpha=3, derivatives=derivs,
+                               dtype=dtype, device=device)
+    tasks = list(range(d + 1))
+    xs = gp.get_x_next_host([n] * (d + 1), task=tasks)
+    gp.add_y_next([torch.as_tensor(y) for y in _deriv_y(xs)], task=tasks)
+    ft.load_jax_params(gp, _seeded_raw(gp))
+    return gp
+
+
+def fleet_model(torch, ft, n, dtype=None, device=None):
+    """A fleet of 8 lattice GPs over shared points (``examples/batch_multitask.py``'s
+    shape_batch), each with its own lengthscales and scale; member b observes
+    (b + 1) f."""
+    B = B_FLEET
+    gp = ft.FastGPLattice(D, seed_for_seq=7, alpha=2, shape_batch=(B,), shape_lengthscales=(B, D),
+                          shape_scale=(B, 1), dtype=dtype, device=device)
+    y = _f(gp.get_x_next_host(n))
+    gp.add_y_next(torch.as_tensor(np.stack([(b + 1) * y for b in range(B)])))
+    ft.load_jax_params(gp, _seeded_raw(gp))
+    return gp
+
+
+def _counts(counters):
+    return {k: v for c in counters for k, v in c.launches.items()}
+
+
+def _finite(torch, name, out):
+    for t in (out if isinstance(out, tuple) else (out,)):
+        if isinstance(t, torch.Tensor) and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite output")
+
+
+def cuda_profile(torch, fn, top=0):
+    """Device ms and kernel launches of ``fn()`` under ``torch.profiler``
+    with CUDA activity only (a request launches ~10^5 kernels, and the CPU
+    side's events would cost the profile's parse a minute); with ``top``,
+    also the ``top`` kernels by device time as (ms, launches, name)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    if not top:
+        return device_events(prof)
+    evs = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+                  if dev_us(e) > 0), reverse=True)
+    return device_events(prof) + (evs[:top],)
+
+
+def step_profile(torch, gp, d_out, steps=8):
+    """The fit step (loss, gradient, Rprop update) of ``gp``'s MLL: wall ms a
+    step over a chain of 2 x ``steps`` (``steps`` a dispatch), then the device
+    ms and kernel launches a step of a chain of ``steps`` under the profiler,
+    and the device's busy share of the unprofiled step."""
+    const = d_out * float(gp.n.sum()) * math.log(2 * math.pi)
+    lg = gp._make_loss_fn("MLL", None, d_out, const, 1)
+    data = gp._fit_data()
+    fit_chain(torch, gp, lg, data, steps, steps)
+    t0 = time.perf_counter()
+    fit_chain(torch, gp, lg, data, 2 * steps, steps)
+    step_ms = (time.perf_counter() - t0) / (2 * steps) * 1e3
+    dev_ms, nlaunch, top = cuda_profile(
+        torch, lambda: fit_chain(torch, gp, lg, data, steps, steps), top=5)
+    return dict(step_ms=step_ms, device_ms=dev_ms / steps, launches=nlaunch / steps,
+                busy=dev_ms / steps / step_ms,
+                top=[(ms / steps, c / steps, name[:90]) for ms, c, name in top])
+
+
+def call_profile(torch, fn):
+    """Wall ms of one call, then its device ms and kernel launches under the
+    profiler, and the device's busy share of the unprofiled wall time."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev_ms, nlaunch = cuda_profile(torch, fn)
+    return dict(wall_ms=wall, device_ms=dev_ms, launches=nlaunch, busy=dev_ms / wall)
+
+
+def phase_config(torch, tp, tf, label, gp, fits, serve, fit_kernels, serve_kernels, profiled,
+                 d_out=1):
+    """One configuration of phase 6 on the card, the plain versions of K1, K2
+    and K4 refused: ``fits`` (``fit`` keyword sets, run in turn, each with
+    the launch counters reset just before and read just after; the kernels
+    ``fit_kernels`` must have launched in each), then the requests ``serve``
+    ((name, call) pairs; their launch counts together, ``serve_kernels``
+    must have launched), each call's wall time; the profiles of the fit step
+    and of the request ``profiled`` ((name, call)); peak device memory."""
+    sync = torch.cuda.synchronize
+    counters = (tp, tf)
+    res = {"fits": [], "serve_ms": {}}
+    torch.cuda.reset_peak_memory_stats()
+    with refuse_plain(tp, tf):
+        for kw in fits:
+            before = {k: p.raw.clone() for k, p in gp.params.items()}
+            for c in counters:
+                c.reset_launches()
+            t0 = time.perf_counter()
+            out = gp.fit(verbose=0, store_loss_hist=True, **kw)
+            sync()
+            wall = time.perf_counter() - t0
+            counts = _counts(counters)
+            lh = out["loss_hist"]
+            shown = {k: v for k, v in kw.items() if k != "masks"}
+            if "masks" in kw:
+                shown["masks"] = np.asarray(kw["masks"]).tolist()
+            log(f"  fit({shown}): {wall:.3f} s, {out['iterations']} iterations, loss "
+                f"{lh[0]:.6e} -> {lh[-1]:.6e}; launches {counts}")
+            if not np.isfinite(lh).all():
+                raise AssertionError(f"{label}: non-finite loss in the fit")
+            moved = [k for k, p in gp.params.items() if not torch.equal(p.raw, before[k])]
+            if not moved or any(not gp.params[k].trainable for k in moved):
+                raise AssertionError(f"{label}: the fit moved {moved}")
+            if "masks" in kw:
+                keep = np.setdiff1d(np.arange(B_FLEET), np.asarray(kw["masks"]).ravel())
+                ls0, ls1 = before["lengthscales"], gp.params["lengthscales"].raw
+                if not torch.equal(ls0[keep], ls1[keep]) or torch.equal(ls0, ls1):
+                    raise AssertionError(f"{label}: the masked fit moved unmasked members")
+            if not all(counts[k] > 0 for k in fit_kernels):
+                raise AssertionError(f"{label}: a kernel of the fit never launched: {counts}")
+            res["fits"].append(dict(wall_s=wall, iterations=out["iterations"],
+                                    loss=[float(lh[0]), float(lh[-1])], launches=counts))
+        for c in counters:
+            c.reset_launches()
+        outs = {}
+        for name, call in serve:
+            t0 = time.perf_counter()
+            outs[name] = call()
+            sync()
+            res["serve_ms"][name] = (time.perf_counter() - t0) * 1e3
+            _finite(torch, name, outs[name])
+        res["serve_launches"] = _counts(counters)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not all(res["serve_launches"][k] > 0 for k in serve_kernels):
+            raise AssertionError(f"{label}: a kernel of serving never launched: "
+                                 f"{res['serve_launches']}")
+        res["step"] = step_profile(torch, gp, d_out)
+        res["serve_profile"] = dict(call_profile(torch, profiled[1]), request=profiled[0])
+    log("  requests: " + ", ".join(f"{k} {v:.1f} ms" for k, v in res["serve_ms"].items())
+        + f"; launches {res['serve_launches']}; peak device memory {res['peak_gib']:.2f} GiB")
+    st, sp = res["step"], res["serve_profile"]
+    log(f"  fit step: {st['step_ms']:.2f} ms a step, device busy {st['device_ms']:.3f} ms "
+        f"({100 * st['busy']:.1f}%), {st['launches']:.0f} device launches a step; its largest:")
+    for ms, c, name in st["top"]:
+        log(f"    {ms:9.4f} ms  x{c:<7.1f} {name}")
+    log(f"  {profiled[0]}: wall {sp['wall_ms']:.1f} ms, device busy {sp['device_ms']:.1f} ms "
+        f"({100 * sp['busy']:.1f}%), {sp['launches']} device launches")
+    return res, outs
+
+
+def check_mt_outputs(torch, gp, outs, nq, with_cov):
+    """Shapes and consistency of mt_dnb2 / mt_lattice's answers: variances
+    non-negative, the credible interval around its mean, the cubature
+    covariance's diagonal the cubature variances; with ``with_cov`` the
+    posterior covariance of the first 256 query points with themselves,
+    whose (t, t) diagonals are the variances ``post_mean_var`` served there
+    (within 1e-3 of the prior variance: two float32 paths through
+    cancellation)."""
+    T = gp.num_tasks
+    pm, pv = outs["post_mean_var"]
+    if pm.shape != (T, nq) or pv.shape != (T, nq) or bool((pv < 0).any()):
+        raise AssertionError("post_mean_var: wrong shape or negative variance")
+    pmc, pvc, q, lo, hi = outs["post_ci"]
+    if pmc.shape != (256,) or not bool(((lo <= pmc) & (pmc <= hi)).all()):
+        raise AssertionError("post_ci: wrong shape or interval")
+    pcc = outs["post_cubature_cov"]
+    pcv = gp.post_cubature_var(task=list(range(T)))
+    if pcc.shape != (T, T) or not torch.allclose(torch.diagonal(pcc), pcv, rtol=1e-6, atol=0):
+        raise AssertionError("post_cubature_cov: wrong shape or diagonal")
+    if with_cov:
+        pc = outs["post_cov"]
+        if pc.shape != (T, T, 256, 256):
+            raise AssertionError("post_cov: wrong shape")
+        prior = float((gp.scale * torch.diagonal(gp.gram_matrix_tasks)).max())
+        gap = max(float((torch.diagonal(pc[t, t]) - pv[t, :256]).abs().max()) for t in range(T))
+        log(f"  post_cov diagonal vs post_mean_var's variance: max abs {gap:.2e} "
+            f"(tol {1e-3 * prior:.1e}, 1e-3 of the prior variance)")
+        if not gap < 1e-3 * prior:
+            raise AssertionError("post_cov: diagonal disagrees with the variance")
+
+
+def fleet_var_routes(torch, tp, tf, gp, xq, reps=2):
+    """A fleet's posterior variances on the permuted path two ways, in one
+    call, the plain kernel versions refused: "k3", the package's route (K3
+    once a member, each with its own weights), against "k1", the JAX
+    package's route for a batched spectrum (K1 over every member's rows,
+    then the weighted sum of |spectrum|^2 in torch ops).  First the
+    variance step alone on one query chunk's rows (CUDA graphs; the two
+    results held against each other at 1e-5 of the max), then the whole
+    ``post_mean_var`` of ``xq`` in the order k3, k1, k1, k3 (``reps`` = 2
+    of each), with launches and peak memory."""
+    from fastgaussianprocesses_torch.models import fast as fm
+    cls = fm._PermSpectrumSolver
+    k3_route = cls.gram_quad_diag
+
+    def k1_route(self, ycat, extra_ndim=0, pre_permuted=False):
+        yst = self.model._ft_perm_q(ycat, pre_permuted)
+        zt = yst / self._lam_b(extra_ndim)
+        return torch.real(torch.conj(yst) * zt).sum(-1)
+
+    seen = []
+
+    def capture(self, ycat, extra_ndim=0, pre_permuted=False):
+        seen.append((self, ycat, extra_ndim, pre_permuted))
+        return k3_route(self, ycat, extra_ndim, pre_permuted)
+    routes = {"k3": k3_route, "k1": k1_route}
+    res = {"request_ms": {"k3": [], "k1": []}, "launches": {}, "peak_gib": {}}
+    with refuse_plain(tp, tf):
+        cls.gram_quad_diag = capture
+        try:
+            gp.post_mean_var(xq[:NB_FLEET])
+        finally:
+            cls.gram_quad_diag = k3_route
+        solver, ycat, extra, pre = seen[0]
+        if not pre:
+            raise AssertionError("fleet routes: the chunk's rows were not pre-permuted")
+        outs = {k: f(solver, ycat, extra, pre) for k, f in routes.items()}
+        err = rel_err(outs["k1"], outs["k3"])[0]
+        res["step_ms"] = {k: gtime(lambda f=f: f(solver, ycat, extra, pre), 5)
+                          for k, f in routes.items()}
+        res["step_shape"], res["step_err"] = list(outs["k3"].shape), err
+        del outs, seen, solver, ycat
+        torch.cuda.empty_cache()
+        try:
+            for k in ("k3", "k1", "k1", "k3") * (reps // 2):
+                cls.gram_quad_diag = routes[k]
+                tp.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                gp.post_mean_var(xq)
+                torch.cuda.synchronize()
+                res["request_ms"][k].append((time.perf_counter() - t0) * 1e3)
+                res["launches"][k] = dict(tp.launches)
+                res["peak_gib"][k] = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            cls.gram_quad_diag = k3_route
+    log(f"  fleet variance routes, one chunk's step (output {res['step_shape']}, rows of "
+        f"n = 2^16): k3 {res['step_ms']['k3']:.4f} ms, k1 {res['step_ms']['k1']:.4f} ms; "
+        f"k1 vs k3 {err:.2e} (tol 1e-5)")
+    log(f"  fleet post_mean_var of {len(xq)} points: k3 "
+        + ", ".join(f"{v:.1f}" for v in res["request_ms"]["k3"]) + " ms, k1 "
+        + ", ".join(f"{v:.1f}" for v in res["request_ms"]["k1"])
+        + f" ms; launches {res['launches']}; peak {res['peak_gib']} GiB")
+    if not err < 1e-5:
+        raise AssertionError("fleet variance routes disagree")
+    return res
+
+
+def check_row_cap(torch, tp):
+    """K1, K2 and K3 at n = 2^14 on R = 70 000 rows, past CUDA's gridDim.y
+    cap of 65535.  Through the public ops ``pfft``, ``pifft_real`` and
+    ``pfft_quad``: two launches each (row blocks), and rows 0-999 and
+    65 000-69 999 (both sides of the block boundary) against the plain
+    versions at phase 3's tolerance (``pfft_quad`` against its definition
+    on ``pfft_plain``'s spectrum).  Then through the wrappers' ``out`` test
+    hook, the outputs filled with NaN first: every row written (no NaN
+    left)."""
+    n, R = 1 << 14, R_PAST_CAP
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(R, n, device="cuda", generator=g) + 1.0
+    w = torch.rand(n, device="cuda", generator=g) + 0.1
+    rows = torch.cat([torch.arange(0, 1000), torch.arange(65000, R)]).cuda()
+    tp.reset_launches()
+    t0 = time.perf_counter()
+    X = tp.pfft(x, n)
+    xb = tp.pifft_real(X, n)
+    q = tp.pfft_quad(x, w, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(tp.launches)
+    xs = x[rows]
+    m = xs.mean(-1)
+    e1 = rel_err(X[rows], tp.pfft_plain(xs, n))[0]
+    e2 = rel_err(xb[rows], tp.pifft_real_plain(X[rows], n))[0]
+    spec = tp.pfft_plain(xs - m[:, None], n)
+    e3 = rel_err(q[rows], (w * spec.abs().square()).sum(-1) / n + w[0] * n * m * m)[0]
+    del X, xb, q, xs, spec
+    torch.cuda.empty_cache()
+    # the test hook: caller-owned outputs, NaN-filled, so that a row block
+    # left unwritten shows
+    tp.reset_launches()
+    A0, Bh, Bl, _ = tp._plan(n)
+    wk = torch.rand(Bh, A0, Bl, device="cuda", generator=g) + 0.1
+    X = torch.full((R, n), complex(math.nan, math.nan), dtype=torch.complex64, device="cuda")
+    tp._pfft_cuda(x, n, out=X)
+    xb = torch.full((R, n), math.nan, dtype=torch.float32, device="cuda")
+    tp._pifft_real_cuda(X, n, out=xb)
+    H = tp._slab_plan(n)[0] // 2 + 1
+    part = torch.full((R, H), math.nan, dtype=torch.float32, device="cuda")
+    tp.quad_partials(x, wk, n, x.mean(-1), out=part)
+    torch.cuda.synchronize()
+    counts_out = dict(tp.launches)
+    unwritten = [int(torch.isnan(torch.view_as_real(t) if t.is_complex() else t)
+                     .flatten(1).any(-1).sum()) for t in (X, xb, part)]
+    log(f"  K1-K3 at n=2^14, R={R}, public ops ({wall:.2f} s, launches {counts}): rows "
+        f"0-999 and 65000-{R - 1} vs plain: K1 {e1:.3e}, K2 {e2:.3e}, K3 {e3:.3e} (tol "
+        f"{TOL_KERNEL:.0e}); into NaN-filled outputs (launches {counts_out}): rows left "
+        f"unwritten {unwritten}")
+    del x, X, xb, part
+    torch.cuda.empty_cache()
+    if any(unwritten) or not max(e1, e2, e3) < TOL_KERNEL:
+        raise AssertionError("K1-K3 past the row cap: rows unwritten or wrong")
+    two = {"pfft": 2, "pifft_real": 2, "quad": 2}
+    if counts != two or counts_out != two:
+        raise AssertionError(f"K1-K3 past the row cap: launches {counts}, {counts_out}, "
+                             "not two row blocks")
+
+
+CROSS_RUNS = {"card f32": ("cuda", "float32"), "cpu f32": ("cpu", "float32"),
+              "cpu f64": ("cpu", "float64"), "card f64": ("cuda", "float64")}
+
+
+def cross_results(torch, tp, tf, build, run):
+    """One run of a cross-check: ``build(dtype, device)``'s coefficients,
+    log-determinant, MLL, ``post_mean_var`` (64 points, every task),
+    ``post_cov`` (16 x 16), ``post_cubature_cov`` and its prior variance, and
+    the MLL's gradient; on the card with the plain kernel versions refused."""
+    from contextlib import nullcontext
+    dev, dt = CROSS_RUNS[run]
+    gp = build(getattr(torch, dt), dev)
+    xq = np.random.default_rng(5).uniform(size=(64, gp.d))
+    lg = gp._make_loss_fn("MLL", None, 1, float(gp.n.sum()) * math.log(2 * math.pi), 1)
+    with refuse_plain(tp, tf) if dev == "cuda" else nullcontext():
+        loss, _, g = lg(gp._raw_dict(), gp._fit_data())
+        pm, pv = gp.post_mean_var(xq)
+        out = {"coeffs": gp.coeffs, "logdet": gp._solver().factor.logdet, "mll": loss,
+               "post_mean": pm, "post_var": pv, "post_cov": gp.post_cov(xq[:16], xq[:16]),
+               "cubature_cov": gp.post_cubature_cov()}
+    res = {k: v.detach().double().cpu().reshape(-1) for k, v in out.items()}
+    res["prior"] = float((gp.scale * torch.diagonal(gp.gram_matrix_tasks)).abs().max())
+    return res, {k: g[k].double().cpu().numpy() for k in g if gp.params[k].trainable}
+
+
+def cross_errors(a, b):
+    """Max |a - b| of each quantity over the max |b|, the cubature
+    covariance's over its prior variance (it is the prior minus an O(prior)
+    term)."""
+    return {k: float((a[k] - b[k]).abs().max()) / (b["prior"] if k == "cubature_cov" else
+                                                   float(b[k].abs().max()))
+            for k in a if k != "prior"}
+
+
+def grad_signs_agree(ga, gb):
+    """Entries above 1e-3 of their parameter's largest agree in sign."""
+    return all((np.sign(ga[k][big]) == np.sign(gb[k][big])).all()
+               for k in gb for big in [np.abs(gb[k]) > 1e-3 * np.abs(gb[k]).max()])
+
+
+def mt_crosscheck(torch, tp, tf, label, build, holds):
+    """Small-size cross-check of one configuration.  ``holds``: (run, ref,
+    limit) triples over ``CROSS_RUNS``, the limit a number, a {quantity:
+    limit} dict, or None (printed, not held); where held, the MLL gradient's
+    signs must agree too."""
+    runs = {r for h in holds for r in h[:2]}
+    res = {r: cross_results(torch, tp, tf, build, r) for r in sorted(runs)}
+    failed = []
+    for run, ref, lim in holds:
+        errs = cross_errors(res[run][0], res[ref][0])
+        signs = grad_signs_agree(res[run][1], res[ref][1])
+        lims = {k: lim.get(k) if isinstance(lim, dict) else lim for k in errs}
+        log(f"  {label} {run} vs {ref}: " + ", ".join(
+            f"{k} {e:.2e}" + ("" if lims[k] is None else f" (tol {lims[k]:.0e})")
+            for k, e in errs.items()) + f"; gradient signs agree: {signs}"
+            + ("" if lim is not None else " (printed, not held)"))
+        if lim is not None and (not signs or not all(errs[k] < lims[k] for k in errs)):
+            failed.append(f"{run} vs {ref}")
+    if failed:
+        raise AssertionError(f"{label}: {', '.join(failed)} disagree")
+
+
+def phase_multitask(torch, ft, tp, tf):
+    """Phase 6: the multitask, derivative-informed and fleet models on the
+    card (see the module docstring); returns their results for the kernels
+    line and the ``{"multitask": ...}`` line."""
+    out = {}
+    tasks = [0, 1, 2]
+    rng = np.random.default_rng(11)
+    xq = rng.uniform(size=(4096, D))
+    x256 = xq[:256]
+
+    def profiled(gp):       # a quarter of the served post_mean_var
+        return "post_mean_var (256 points, every task)", lambda: gp.post_mean_var(x256, task=tasks)
+    log("  mt_dnb2: FastGPDigitalNetB2(d=8, num_tasks=3), n = (2^20, 2^19, 2^18), M = 7")
+    t0 = time.perf_counter()
+    gp = mt_model(torch, ft, ft.FastGPDigitalNetB2, MT_NS)
+    torch.cuda.synchronize()
+    log(f"  setup (points, data, params): {time.perf_counter() - t0:.2f} s; query chunk "
+        f"{gp._query_chunk_size(1024, sum(MT_NS))} rows")
+    if gp._query_chunk_size(1024, sum(MT_NS)) != NB_MT:
+        raise AssertionError(f"mt_dnb2's query chunk is not {NB_MT} rows")
+    serve = [("post_mean_var", lambda: gp.post_mean_var(xq[:1024], task=tasks)),
+             ("post_cov", lambda: gp.post_cov(x256, x256, task0=tasks, task1=tasks)),
+             ("post_ci", lambda: gp.post_ci(x256, task=2)),
+             ("post_cubature_cov", gp.post_cubature_cov)]
+    res, outs = phase_config(torch, tp, tf, "mt_dnb2", gp, [dict(iterations=20)], serve,
+                             ("fwht",), ("fwht",), profiled(gp))
+    if type(gp._solver()).__name__ != "_FastSolver" or gp._solver().factor.inv.shape[-1] != 7:
+        raise AssertionError("mt_dnb2 did not take the M = 7 multitask solver")
+    check_mt_outputs(torch, gp, outs, 1024, with_cov=True)
+    out["mt_dnb2"] = res
+    del gp, outs, serve
+    torch.cuda.empty_cache()
+
+    log("  mt_lattice: FastGPLattice(d=8, num_tasks=3), n = (2^20, 2^19, 2^18), M = 7 "
+        "(torch.fft)")
+    gp = mt_model(torch, ft, ft.FastGPLattice, MT_NS)
+    serve = [("post_mean_var", lambda: gp.post_mean_var(xq[:1024], task=tasks)),
+             ("post_ci", lambda: gp.post_ci(x256, task=2)),
+             ("post_cubature_cov", gp.post_cubature_cov)]
+    res, outs = phase_config(torch, tp, tf, "mt_lattice", gp, [dict(iterations=20)], serve, (), (),
+                             profiled(gp))
+    check_mt_outputs(torch, gp, outs, 1024, with_cov=False)
+    out["mt_lattice"] = res
+    del gp, outs, serve
+    torch.cuda.empty_cache()
+
+    log("  deriv_dnb2: FastGPDigitalNetB2(d=3, alpha=3, num_tasks=4, derivatives=[0, e0, e1, "
+        "e2]), n = 2^16 a task, M = 4, float64 (float32 does not resolve it)")
+    gp = deriv_model(torch, ft, N_DERIV, torch.float64)
+    xd = rng.uniform(size=(1024, 3))
+    serve = [("post_mean", lambda: gp.post_mean(xd, task=[0, 1, 2, 3]))]
+    res, outs = phase_config(torch, tp, tf, "deriv_dnb2", gp, [dict(iterations=20)], serve,
+                             ("fwht",), ("fwht",),
+                             ("post_mean (256 points)",
+                              lambda: gp.post_mean(xd[:256], task=[0, 1, 2, 3])))
+    pm = outs["post_mean"]
+    f = torch.sin(2 * math.pi * torch.as_tensor(xd[:, 0]))
+    rms = float((pm[0].double().cpu() - f).square().mean().sqrt() / f.square().mean().sqrt())
+    log(f"  deriv_dnb2 post_mean of f against sin(2 pi x_0): rms error {rms:.3e} of its rms "
+        f"(float64; printed, not held: the model's own error, not the port's)")
+    if pm.shape != (4, 1024):
+        raise AssertionError("deriv_dnb2: post_mean has the wrong shape")
+    out["deriv_dnb2"] = res
+    del gp, outs, serve
+    torch.cuda.empty_cache()
+
+    log("  fleet_lattice: FastGPLattice(d=8, shape_batch=(8,)), n = 2^16, member b observes "
+        "(b+1) f")
+    gp = fleet_model(torch, ft, N_FLEET)
+    if gp._query_chunk_size(4096, N_FLEET) != NB_FLEET:
+        raise AssertionError(f"fleet_lattice's query chunk is not {NB_FLEET} rows")
+    serve = [("post_mean_var", lambda: gp.post_mean_var(xq))]
+    res, outs = phase_config(torch, tp, tf, "fleet_lattice", gp,
+                             [dict(iterations=10), dict(iterations=4, masks=np.array([[1, 5]]))],
+                             serve, ("pfft", "pifft_real"), ("pifft_real", "quad"), serve[0],
+                             d_out=B_FLEET)
+    if type(gp._solver()).__name__ != "_PermSpectrumSolver":
+        raise AssertionError("fleet_lattice did not take the float32 permuted path")
+    pm, pv = outs["post_mean_var"]
+    if pm.shape != (B_FLEET, 4096) or pv.shape != (B_FLEET, 4096) or bool((pv < 0).any()):
+        raise AssertionError("fleet_lattice post_mean_var: wrong shape or negative variance")
+    res["var_routes"] = fleet_var_routes(torch, tp, tf, gp, xq)
+    out["fleet_lattice"] = res
+    del gp, outs, serve
+    torch.cuda.empty_cache()
+
+    log("  K1-K3 past the row cap")
+    check_row_cap(torch, tp)
+    log("  cross-checks at n = (2^12, 2^11, 2^10), d = 8 (mt) and n = 2^12, d = 3 (deriv)")
+    small = (1 << 12, 1 << 11, 1 << 10)
+    mt_crosscheck(torch, tp, tf, "mt_dnb2",
+                  lambda dt, dev: mt_model(torch, ft, ft.FastGPDigitalNetB2, small, dt, dev),
+                  (("card f32", "cpu f32", 5e-5), ("card f32", "cpu f64", TOL64_MT_DNB2)))
+    mt_crosscheck(torch, tp, tf, "mt_lattice",
+                  lambda dt, dev: mt_model(torch, ft, ft.FastGPLattice, small, dt, dev),
+                  (("card f32", "cpu f32", 5e-5), ("card f32", "cpu f64", TOL64_MT_LATTICE)))
+    # float32 does not resolve the derivative-informed system in either package
+    # (see deriv_model): the card's float64 path, the one phase 6 serves, is
+    # held; its float32 is printed
+    mt_crosscheck(torch, tp, tf, "deriv_dnb2",
+                  lambda dt, dev: deriv_model(torch, ft, 1 << 12, dt, dev),
+                  (("card f64", "cpu f64", 1e-6), ("card f32", "cpu f32", None),
+                   ("card f32", "cpu f64", None)))
+    return out
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -941,8 +1518,10 @@ def main(argv):
     if nb != NB_DIGITAL:
         raise AssertionError(f"the digital net's query chunk is {nb} rows, not {NB_DIGITAL}")
     log("phase 3: kernels against their plain versions")
-    rows = phase_kernels(torch, tp)
-    rows_fwht = phase_fwht(torch, tf, ttr, nb)
+    # and at phase 6's shapes: fleet_lattice's eigenvalues (K1, K2 its backward) and
+    # query chunk (K3 a member); mt_dnb2's shorter tasks' eigenvalues and query rows (K4)
+    rows = phase_kernels(torch, tp, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET)])
+    rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT)])
     log("phase 4: cross-check at n=2^16, d=8")
     # card f32 against CPU f32 runs the same arithmetic but for the kernels'
     # summation order (measured on the H100: lattice at most 6.4e-6; digital
@@ -974,6 +1553,13 @@ def main(argv):
     log("  each backward alone")
     bwd = backward_checks(torch, tp, tf)
     print(json.dumps({"fit_step": {"FastGPLattice": fit_res, "FastGPDigitalNetB2": fit_res_dn}}))
+
+    log("phase 6: multitask, derivative-informed and fleet models on the card (the plain "
+        "kernel versions refused)")
+    t6 = time.perf_counter()
+    mt = phase_multitask(torch, ft, tp, tf)
+    log(f"  phase 6: {time.perf_counter() - t6:.1f} s")
+    print(json.dumps({"multitask": mt}))
 
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
     spec = [("K1 perm_fft.pfft", "K1", 1, "pfft", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
@@ -1010,6 +1596,30 @@ def main(argv):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": "n=2^20, R=1"})
+    fwsrc = "fastgaussianprocesses_torch/csrc/fwht.cu"
+    for name, src_, replaces, r, shape, launches in (
+            ("K4 fwht.fwht (mt_dnb2 fit, eigenvalues and backward)", fwsrc, "pallas_fwht.py:59",
+             rows_fwht[(N_MAIN // 2, 1)], "n=2^19, R=1",
+             mt["mt_dnb2"]["fits"][0]["launches"]["fwht"]),
+            ("K4 fwht.fwht (mt_dnb2 serving, query rows)", fwsrc, "pallas_fwht.py:59",
+             rows_fwht[(N_MAIN, 3 * NB_MT)], f"n=2^20, R={3 * NB_MT}",
+             mt["mt_dnb2"]["serve_launches"]["fwht"]),
+            ("K1 perm_fft.pfft (fleet_lattice fit, eigenvalues)", src, "pallas_fft.py:129",
+             rows[("K1", N_FLEET, B_FLEET)], f"n=2^16, R={B_FLEET}",
+             mt["fleet_lattice"]["fits"][0]["launches"]["pfft"]),
+            ("K2 as pfft's backward (fleet_lattice fit)", src, "pallas_fft.py:268",
+             rows[("K2", N_FLEET, B_FLEET)], f"n=2^16, R={B_FLEET}",
+             mt["fleet_lattice"]["fits"][0]["launches"]["pifft_real"]),
+            ("K3 perm_fft.quad_partials (fleet_lattice serving, a member)", src,
+             "pallas_fft.py:419", rows[("K3", N_FLEET, NB_FLEET)], f"n=2^16, R={NB_FLEET}",
+             mt["fleet_lattice"]["serve_launches"]["quad"])):
+        kernels.append({"name": name, "route": "cuda", "source": src_,
+                        "replaces": "fastgaussianprocesses_tpu/ops/" + replaces,
+                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms"),
+                        "shape": shape})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,10 @@ Hopper kernels for the permuted-spectrum FFT (``ops/perm_fft``,
 ``csrc/perm_fft.cu``) and the fast Walsh-Hadamard transform (``ops/fwht``,
 ``csrc/fwht.cu``).
 
-It fits the hyperparameters of single-task lattice and digital-net models
-(MLL, GCV or CV with Rprop) and serves their posterior queries; the JAX
-package ``fastgaussianprocesses_tpu`` is the reference it is tested
+It fits the hyperparameters of lattice and digital-net models (MLL, GCV or
+CV with Rprop) and serves their posterior queries, with one task or many
+(multi-fidelity, derivative-informed) and as ``shape_batch`` fleets; the
+JAX package ``fastgaussianprocesses_tpu`` is the reference it is tested
 against.  Entry points run on the CUDA card unless ``device="cpu"`` is given.
 """
 

@@ -40,10 +40,7 @@ def default_dtype(device: torch.device) -> torch.dtype:
 
 def debug_checks_enabled() -> bool:
     """Mirror of the JAX package's dense-oracle flag (``FASTGPS_TPU_DEBUG``),
-    read from ``FASTGPS_TORCH_DEBUG``.
-
-    In the JAX package it makes the fast single-task solvers step aside for
-    the general solver.  The port does not have that solver yet, so a model
-    refuses to be built while the flag is set rather than ignore it.
-    """
+    read from ``FASTGPS_TORCH_DEBUG``: the fast single-task solvers step
+    aside for the general solver, and every solver a model builds is checked
+    against the dense oracle (``utils/debug.check_fast_solver``)."""
     return os.environ.get("FASTGPS_TORCH_DEBUG", "") in ("1", "True", "true")

@@ -8,7 +8,11 @@ Both packages then compute the same posterior on the same data, and their
 ``fit`` trains the same parameters.  The raw values are the parameters
 before their transforms (``log`` of scale, lengthscales and noise by
 default), so the two models must use the same transforms, which the
-defaults do.
+defaults do.  Multitask and fleet shapes carry over as they are (a task
+factor of shape (..., T, r), per-member leading dims); the model options
+that are not parameters, such as ``num_tasks``, ``derivatives``,
+``shape_batch`` and ``adaptive_nugget``, go to the port's constructor under
+the same names.
 """
 
 import numpy as np

@@ -1,11 +1,27 @@
-"""Frequency-domain solver for fast GPs, single-task half (counterpart of
+"""Frequency-domain multitask solver for fast GPs (counterpart of
 ``fastgaussianprocesses_tpu/linalg/fast_solver.py``).
 
-After the fast transform a single-task Gram matrix is diagonal in frequency
-space, so factorizing it is elementwise arithmetic on its eigenvalues.  The
-multitask residue-block factorization comes with the multitask slice;
-``effective_lams`` and ``factorize`` raise ``NotImplementedError`` for more
-than one task.
+After the fast transform, the multitask Gram matrix is block-sparse in
+frequency space: task l (sorted by descending n_l) contributes r_l = n_l /
+n_min frequencies per residue class rho in [0, n_min), and frequencies only
+couple within a residue class.  The whole (sum n_l)^2 system therefore
+factorizes into n_min independent M x M systems, M = sum_l r_l, which are
+assembled once as an (..., n_min, M, M) stack and inverted batched:
+
+* M <= 3: closed cofactor forms, elementwise over the frequency batch;
+* 3 < M <= 64: a recursive 2 x 2 block Schur ladder whose leaves are the
+  closed forms, its products batched ``torch.matmul`` on the tiny blocks;
+* M > 64: ``torch.linalg.inv`` / ``slogdet`` (complex blocks directly: the
+  JAX package's real embedding exists only because the TPU lacks complex
+  LU; the log|det| semantics are the same).
+
+None of them is a Cholesky: derivative-informed blocks are indefinite over
+part of hyperparameter space, and the fit visits such points.  A single
+task (M == 1) is purely diagonal arithmetic on its eigenvalues.
+
+For tasks l0 <= l1 (so n0 >= n1) the cross Gram is convolution by the first
+column followed by inclusion of the size-n1 subgroup: in frequency space
+``sqrt(n1) * ft(k1)[k]`` at (k, k mod n1).
 """
 
 from typing import NamedTuple, Optional, Sequence
@@ -17,12 +33,8 @@ import torch
 # that effective_lams adds (see there).
 EIG_FLOOR_C = 8.0
 
-
-def require_single_task(num_tasks: int) -> None:
-    if num_tasks != 1:
-        raise NotImplementedError(
-            "this model needs the general multitask fast solver, which the port gains "
-            "with its multitask slice (ROADMAP queue 1 item 5)")
+# largest M the Schur ladder inverts; above it, LU
+SCHUR_MAX_M = 64
 
 
 class FastFactor(NamedTuple):
@@ -52,74 +64,259 @@ def sort_tasks(n: Sequence[int]):
     return task_order, inv_task_order
 
 
-def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise):
+def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
+                   inv_task_order, adaptive_nugget: bool = False):
     """Noise, task-kernel scaling and the eigenvalue floor on the transformed
-    first column of one task: ``(sqrt(n) lam + noise) * K_tasks[0, 0]`` plus
-    ``EIG_FLOOR_C * eps * max|.|``.
+    first columns.
+
+    Args:
+        lam_pairs: ``{(l0, l1): ft(k1)}`` over sorted task positions
+            l0 <= l1, each of length ``n_sorted[l0]`` (complex for the
+            lattice, real for the digital net).
+        kmat_tasks: (..., T, T) task Gram ``F F^T + diag(v)``; noise: (..., 1).
+        adaptive_nugget: scale each task's noise by the trace ratio
+            ``|tr K_ll / tr K_00|`` (task 0 in the original order).
+
+    Returns:
+        ``{(l0, l1): (..., n_sorted[l0])}`` with ``sqrt(n_sorted[l1]) * lam``,
+        the noise added on diagonal pairs, times ``K_tasks[to0, to1]``, and
+        on diagonal pairs the floor ``EIG_FLOOR_C * eps * max|.|``.
 
     The transform computes each eigenvalue with an absolute error of about
     eps * max|lam|, so eigenvalues below that level are rounding noise (maybe
     negative), and with a near-zero ``noise`` the solve would amplify them.
     The floor makes the solve well-posed in the working precision; it is
-    invisible in float64.  (With one task the JAX package's adaptive-nugget
-    trace ratio is 1, so it has no counterpart here.)
-
-    Args:
-        lam_pairs: ``{(0, 0): ft(k1)}``, real (digital net) or complex.
-        n_sorted: ``(n,)``.
-        kmat_tasks: (..., 1, 1) task Gram; noise: (..., 1).
-
-    Returns:
-        ``{(0, 0): (..., n)}`` effective eigenvalues.
+    invisible in float64.  It is differentiated on purpose: at near-zero
+    noise the floored surface's smooth gradient comes from the floor term,
+    and without it float32 samplers integrate rounding noise (the JAX
+    package's finding, ``PERF_ANALYSIS.md`` section 4).
     """
-    require_single_task(len(n_sorted))
-    lam = lam_pairs[(0, 0)]
-    rdt = lam.abs().dtype
-    lam = torch.sqrt(torch.tensor(float(n_sorted[0]), dtype=rdt, device=lam.device)) * lam
-    lam = (lam + noise) * kmat_tasks[..., 0, 0][..., None]
-    floor = EIG_FLOOR_C * torch.finfo(rdt).eps * lam.abs().amax(-1, keepdim=True)
-    return {(0, 0): lam + floor}
+    T = len(n_sorted)
+    scaled = {}
+    for (l0, l1), lam in lam_pairs.items():
+        rdt = lam.abs().dtype
+        scaled[(l0, l1)] = torch.sqrt(
+            torch.tensor(float(n_sorted[l1]), dtype=rdt, device=lam.device)) * lam
+    if adaptive_nugget:
+        root = inv_task_order[0]  # sorted position of original task 0
+        tr00 = scaled[(root, root)].sum(-1)
+        for l in range(T):
+            trll = scaled[(l, l)].sum(-1)
+            scaled[(l, l)] = scaled[(l, l)] + noise * (trll / tr00).abs()[..., None]
+    else:
+        for l in range(T):
+            scaled[(l, l)] = scaled[(l, l)] + noise
+    out = {}
+    for (l0, l1), lam in scaled.items():
+        out[(l0, l1)] = lam * kmat_tasks[..., task_order[l0], task_order[l1]][..., None]
+    for l in range(T):
+        lam_ll = out[(l, l)]
+        eps = torch.finfo(lam_ll.abs().dtype).eps
+        out[(l, l)] = lam_ll + EIG_FLOOR_C * eps * lam_ll.abs().amax(-1, keepdim=True)
+    return out
+
+
+def _pair_block(lam, r0: int, r1: int, n_min: int):
+    """(..., n_min, r0, r1) coupling block for one sorted task pair."""
+    lr = lam.reshape(lam.shape[:-1] + (r0, n_min)).transpose(-1, -2)  # (..., n_min, r0)
+    mask = torch.as_tensor((np.arange(r0)[:, None] % r1) == np.arange(r1)[None, :],
+                           dtype=lam.dtype, device=lam.device)
+    return lr[..., :, None] * mask
+
+
+def _inv_logdet_closed(theta, m: int):
+    """Cofactor inverse and log|det| of batched m x m blocks, m <= 3,
+    elementwise over the batch (complex blocks in complex arithmetic).  The
+    caller's relative ridge bounds the conditioning, which makes the
+    unpivoted closed form safe at these sizes."""
+    if m == 1:
+        det = theta[..., 0, 0]
+        inv = (1.0 / det)[..., None, None]
+    elif m == 2:
+        a, b = theta[..., 0, 0], theta[..., 0, 1]
+        c, d = theta[..., 1, 0], theta[..., 1, 1]
+        det = a * d - b * c
+        inv = torch.stack([torch.stack([d, -b], -1),
+                           torch.stack([-c, a], -1)], -2) / det[..., None, None]
+    else:
+        a, b, c = theta[..., 0, 0], theta[..., 0, 1], theta[..., 0, 2]
+        d, e, f = theta[..., 1, 0], theta[..., 1, 1], theta[..., 1, 2]
+        g, h, i = theta[..., 2, 0], theta[..., 2, 1], theta[..., 2, 2]
+        A = e * i - f * h
+        B = -(d * i - f * g)
+        C = d * h - e * g
+        det = a * A + b * B + c * C
+        adj = torch.stack([
+            torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
+            torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
+            torch.stack([C, -(a * h - b * g), a * e - b * d], -1)], -2)
+        inv = adj / det[..., None, None]
+    return inv, torch.log(det.abs())
+
+
+def _inv_logdet_schur(theta, m: int):
+    """Batched inverse and log|det| by recursive 2 x 2 block Schur
+    complements, ``inv([[A, B], [C, D]])`` via ``S = D - C A^-1 B``, down to
+    the m <= 3 closed forms.  ``log|det| = log|det A| + log|det S|``, valid
+    for every invertible A, including the indefinite systems of
+    derivative-informed kernels.  Each level loses about one digit against
+    pivoted LU; the caller's relative ridge bounds the conditioning."""
+    if m <= 3:
+        return _inv_logdet_closed(theta, m)
+    k = m // 2
+    A, B = theta[..., :k, :k], theta[..., :k, k:]
+    C, D = theta[..., k:, :k], theta[..., k:, k:]
+    invA, logdetA = _inv_logdet_schur(A, k)
+    CAi = torch.matmul(C, invA)
+    invS, logdetS = _inv_logdet_schur(D - torch.matmul(CAi, B), m - k)
+    TR = -torch.matmul(torch.matmul(invA, B), invS)
+    TL = invA - torch.matmul(TR, CAi)
+    BL = -torch.matmul(invS, CAi)
+    return torch.cat([torch.cat([TL, TR], -1), torch.cat([BL, invS], -1)], -2), \
+        logdetA + logdetS
 
 
 def factorize(lams: dict, n_sorted, task_order, inv_task_order) -> FastFactor:
-    """Factorize the frequency-space system: for one task the eigenvalues
-    themselves and the log-determinant ``sum log|lam|``."""
-    require_single_task(len(n_sorted))
-    lam = lams[(0, 0)]
-    return FastFactor(lam_eff=lam, inv=None, logdet=torch.log(lam.abs()).sum(-1),
-                      n_sorted=tuple(n_sorted), task_order=tuple(task_order),
-                      inv_task_order=tuple(inv_task_order))
+    """Factorize the frequency-space system: the batched inverse of its
+    residue blocks and its log-determinant (for one task, the eigenvalues
+    themselves and ``sum log|lam|``)."""
+    meta = dict(n_sorted=tuple(n_sorted), task_order=tuple(task_order),
+                inv_task_order=tuple(inv_task_order))
+    T = len(n_sorted)
+    if T == 1:
+        lam = lams[(0, 0)]
+        return FastFactor(lam_eff=lam, inv=None, logdet=torch.log(lam.abs()).sum(-1), **meta)
+    n_min = int(n_sorted[-1])
+    r = [int(nl) // n_min for nl in n_sorted]
+    rows = []
+    for l0 in range(T):
+        cols = []
+        for l1 in range(T):
+            if l0 <= l1:
+                cols.append(_pair_block(lams[(l0, l1)], r[l0], r[l1], n_min))
+            else:
+                cols.append(_pair_block(lams[(l1, l0)], r[l1], r[l0], n_min)
+                            .transpose(-1, -2).conj())
+        batch = np.broadcast_shapes(*[tuple(c.shape[:-2]) for c in cols])
+        rows.append(torch.cat([c.expand(batch + tuple(c.shape[-2:])) for c in cols], -1))
+    batch = np.broadcast_shapes(*[tuple(rw.shape[:-2]) for rw in rows])
+    theta = torch.cat([rw.expand(batch + tuple(rw.shape[-2:])) for rw in rows], -2)
+    m = theta.shape[-1]
+    # relative ridge on the assembled blocks: derivative cross-blocks make
+    # near-linearly-dependent rows, and with near-zero noise the working-
+    # precision factorization loses accuracy; 8 eps max|diag| is rounding-level
+    # regularization, mirroring the single-task eigenvalue floor
+    dmag = torch.diagonal(theta, dim1=-2, dim2=-1).real.abs()
+    ridge = 8.0 * torch.finfo(dmag.dtype).eps * dmag.amax(-1)
+    theta = theta + ridge[..., None, None] * torch.eye(m, dtype=theta.dtype,
+                                                       device=theta.device)
+    if m <= SCHUR_MAX_M:
+        inv, logdet = _inv_logdet_schur(theta, m)
+    else:
+        logdet = torch.linalg.slogdet(theta).logabsdet
+        inv = torch.linalg.inv(theta)
+    return FastFactor(lam_eff=None, inv=inv, logdet=logdet.sum(-1), **meta)
 
 
 def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
-    """Apply the inverse in tilde space (a list with one tilde vector in and
-    out).  ``extra_ndim`` dims between the factor's batch dims and the length
-    axis (2 for (..., T, N, n) prediction blocks) broadcast the factor."""
-    lam = factor.lam_eff
+    """Apply the inverse in tilde space: a list of tilde vectors, one per task
+    in the original order, in and out.  ``extra_ndim`` dims between the
+    factor's batch dims and the length axis (2 for (..., T, N, n) prediction
+    blocks) broadcast the factor."""
+    if factor.lam_eff is not None:
+        lam = factor.lam_eff
+        if extra_ndim:
+            lam = lam.reshape(lam.shape[:-1] + (1,) * extra_ndim + lam.shape[-1:])
+        return [tildes[0] / lam]
+    n_min = int(factor.n_sorted[-1])
+    r = [int(nl) // n_min for nl in factor.n_sorted]
+    ys = [tildes[o] for o in factor.task_order]
+    ys = [y.reshape(y.shape[:-1] + (rl, n_min)) for y, rl in zip(ys, r)]
+    batch = np.broadcast_shapes(*[tuple(y.shape[:-2]) for y in ys])
+    y = torch.cat([y.expand(batch + tuple(y.shape[-2:])) for y in ys], -2)  # (..., M, n_min)
+    inv = factor.inv
     if extra_ndim:
-        lam = lam.reshape(lam.shape[:-1] + (1,) * extra_ndim + lam.shape[-1:])
-    return [tildes[0] / lam]
-
-
-def dc_block(factor: FastFactor):
-    """(..., 1, 1) zero-frequency inverse entry (posterior cubature)."""
-    return (1.0 / factor.lam_eff[..., 0])[..., None, None]
+        inv = inv.reshape(inv.shape[:-3] + (1,) * extra_ndim + inv.shape[-3:])
+    m = inv.shape[-1]
+    if m <= 8:
+        # M^2 multiply-adds over (n_min,) vectors: a batched matmul over the
+        # (n_min, M, M) blocks would broadcast the factor across every query
+        # row first
+        out = torch.stack([sum(inv[..., :, i, j] * y[..., j, :] for j in range(m))
+                           for i in range(m)], -2)
+    else:
+        out = torch.einsum("...pij,...pj->...pi", inv, y.transpose(-1, -2)).transpose(-1, -2)
+    outs, off = [], 0
+    for rl in r:
+        blk = out[..., off:off + rl, :]
+        outs.append(blk.reshape(blk.shape[:-2] + (rl * n_min,)))
+        off += rl
+    return [outs[o] for o in factor.inv_task_order]
 
 
 def trace_inverse(factor: FastFactor):
     """Real trace of the inverse Gram (the GCV denominator)."""
-    require_single_task(len(factor.n_sorted))
-    return torch.real(1.0 / factor.lam_eff).sum(-1)
+    if factor.lam_eff is not None:
+        return torch.real(1.0 / factor.lam_eff).sum(-1)
+    return torch.diagonal(factor.inv, dim1=-2, dim2=-1).real.sum((-1, -2))
 
 
 def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
     """Exact diagonal of ``K^-1`` in point space, one (..., n_l) tensor per
-    task in the original order.  With one task every frequency is its own
-    block, so the diagonal is constant, ``mean(Re(1/lam))``; ``kind``
-    (``"fourier"`` or ``"walsh"``) and ``point_class_fn`` (each point's
-    class among the coupled frequencies) serve the multitask residue blocks,
-    which come with the multitask slice."""
-    require_single_task(len(factor.n_sorted))
-    lam = factor.lam_eff
-    val = torch.real(1.0 / lam).mean(-1)
-    return [val[..., None].expand(val.shape + (lam.shape[-1],))]
+    task in the original order.
+
+    Within sorted task l, frequencies couple across the r_l = n_l / n_min
+    replicas of each residue, so the diagonal takes r_l distinct values,
+    indexed by a point's class:
+
+        diag_c = (1/n_l) sum_rho  v_c^H  B_rho  v_c,
+
+    with B_rho the task's (r_l, r_l) inverse block at residue rho and the
+    characters v_c[j] = exp(-2 pi i c j / r_l) (``kind="fourier"``) or
+    (-1)^<c, j> (``"walsh"``).  ``point_class_fn(task, n_l, r_l)`` maps each
+    of the task's points to its class in [0, r_l).  With one task every
+    frequency is its own block and the diagonal is ``mean(Re(1/lam))``.
+    """
+    if factor.lam_eff is not None:
+        lam = factor.lam_eff
+        val = torch.real(1.0 / lam).mean(-1)
+        return [val[..., None].expand(val.shape + (lam.shape[-1],))]
+    n_sorted = factor.n_sorted
+    n_min = int(n_sorted[-1])
+    r = [int(nl) // n_min for nl in n_sorted]
+    out_sorted, off = [], 0
+    for l, rl in enumerate(r):
+        block = factor.inv[..., off:off + rl, off:off + rl]  # (..., n_min, rl, rl)
+        c = np.arange(rl)
+        if kind == "fourier":
+            v = np.exp(-2j * np.pi * np.outer(c, c) / rl)
+        else:
+            v = np.where(_popcount_and(c[:, None], c[None, :]) % 2 == 1, -1.0, 1.0)
+        v = torch.as_tensor(v, device=block.device).to(block.dtype)
+        vals = torch.einsum("cj,...pjk,ck->...c", v.conj(), block, v).real / float(n_sorted[l])
+        classes = np.asarray(point_class_fn(factor.task_order[l], int(n_sorted[l]), rl))
+        out_sorted.append(vals.index_select(-1, torch.as_tensor(classes, device=vals.device)))
+        off += rl
+    return [out_sorted[o] for o in factor.inv_task_order]
+
+
+def _popcount_and(a, b):
+    """Bit count of ``a & b`` for non-negative integer arrays."""
+    x = (a & b).astype(np.uint64)
+    count = np.zeros_like(x)
+    while x.any():
+        count += x & np.uint64(1)
+        x >>= np.uint64(1)
+    return count
+
+
+def dc_block(factor: FastFactor):
+    """(..., T, T) zero-frequency inverse entries in SORTED task order
+    (posterior cubature)."""
+    if factor.lam_eff is not None:
+        return (1.0 / factor.lam_eff[..., 0])[..., None, None]
+    r = [int(nl) // int(factor.n_sorted[-1]) for nl in factor.n_sorted]
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(r)[:-1]]).astype(np.int64),
+                              device=factor.inv.device)
+    sub = factor.inv[..., 0, :, :]
+    return sub.index_select(-2, offsets).index_select(-1, offsets)

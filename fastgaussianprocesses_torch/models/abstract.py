@@ -6,7 +6,6 @@ host-side geometry caches.  PyTorch runs eagerly, so the JAX package's
 per-signature ``jit`` cache has no counterpart: each query runs its chunks
 in a Python loop, and each fit step is the loss, its gradient by
 ``torch.autograd.grad`` and an Rprop update, launched from Python.
-``post_cov``, ``post_ci`` and ``post_error`` come with later slices.
 """
 
 import math
@@ -14,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import debug_checks_enabled, default_dtype, resolve_device
+from ..config import default_dtype, resolve_device
 from ..fit.rprop import rprop_init, rprop_update
 from .params import IDENTITY, LOG_EXP, make_param
 
@@ -26,6 +25,18 @@ def _as_task_array(task, num_tasks):
     if task.ndim != 1 or not ((task >= 0) & (task < num_tasks)).all():
         raise ValueError(f"invalid task index {task} for {num_tasks} tasks")
     return task, inttask
+
+
+def norm_ppf(q):
+    """Standard normal quantile, on the host (``scipy.special.ndtri``)."""
+    from scipy.special import ndtri
+    return float(ndtri(float(q)))
+
+
+def _check_confidence(confidence):
+    if not 0 < confidence < 1:
+        raise ValueError(f"confidence must be in (0, 1), got {confidence}")
+    return norm_ppf(1 - (1 - confidence) / 2)
 
 
 def _cat(ts, dim):
@@ -64,12 +75,9 @@ class AbstractGP:
                  shape_noise_task_kernel=None,
                  derivatives=None,
                  derivatives_coeffs=None,
+                 adaptive_nugget=False,
                  dtype=None,
                  device=None):
-        if debug_checks_enabled():
-            raise NotImplementedError(
-                "FASTGPS_TORCH_DEBUG selects the dense debug oracle, which the port "
-                "gains with its multitask slice (ROADMAP queue 1 item 5); unset it")
         if num_tasks is None:
             self.solo_task = True
             self.default_task = 0
@@ -155,6 +163,8 @@ class AbstractGP:
             if not torch.allclose(self.gram_matrix_tasks.cpu(),
                                   torch.ones((), dtype=self.dtype)):
                 raise ValueError("derivative mode requires an all-ones task Gram")
+        # scale each task's noise by its Gram trace relative to task 0's
+        self.adaptive_nugget = bool(adaptive_nugget)
         self._y = [torch.zeros(self.shape_batch + (0,), dtype=dt, device=dev)
                    for _ in range(num_tasks)]
         self._x_cache = [None] * num_tasks   # numpy float points
@@ -312,6 +322,18 @@ class AbstractGP:
     def _on_data_change(self):
         pass
 
+    def kernel(self, x, z, beta0=None, beta1=None, c0=None, c1=None):
+        """The model's kernel between point arrays ``x`` and ``z``
+        (broadcasting their leading dims), of the derivative orders ``beta0``
+        / ``beta1`` weighted by ``c0`` / ``c1`` (default: no derivative)."""
+        x, z = (torch.as_tensor(v, device=self.device) for v in (x, z))
+        x, z = (v.to(self.dtype) if v.is_floating_point() else v for v in (x, z))
+        beta0, beta1 = (np.atleast_2d(np.asarray(np.zeros((1, self.d)) if b is None else b,
+                                                 dtype=np.int64)) for b in (beta0, beta1))
+        c0 = np.ones(len(beta0)) if c0 is None else np.asarray(c0)
+        c1 = np.ones(len(beta1)) if c1 is None else np.asarray(c1)
+        return self._kernel_explicit(x, z, beta0, beta1, c0, c1, self.scale, self.lengthscales)
+
     # ------------------------------------------------------------------
     # solver plumbing (provided by concrete models)
     # ------------------------------------------------------------------
@@ -438,12 +460,12 @@ class AbstractGP:
         return int(max(1, min(N, self._QUERY_CHUNK_BYTES // per_row)))
 
     @staticmethod
-    def _map_query_chunks(per_chunk, x, nb):
+    def _map_query_chunks(per_chunk, x, nb, dim=-1):
         """``per_chunk(xq_block)`` over query chunks of ``nb`` rows, results
-        concatenated along their last axis (the chunk's rows)."""
+        concatenated along ``dim`` (the axis of the chunk's rows)."""
         if nb >= x.shape[0]:
             return per_chunk(x)
-        return torch.cat([per_chunk(x[i:i + nb]) for i in range(0, x.shape[0], nb)], -1)
+        return torch.cat([per_chunk(x[i:i + nb]) for i in range(0, x.shape[0], nb)], dim)
 
     def _query_points(self, x):
         x = torch.as_tensor(x, device=self.device).to(self.dtype)
@@ -563,6 +585,106 @@ class AbstractGP:
             pmean, pvar = pmean[..., 0, :], pvar[..., 0, :]
         return pmean, pvar
 
+    def post_cov(self, x0, x1, task0=None, task1=None, n=None):
+        """Posterior covariance, (..., T0, T1, N0, N1); ``n`` projects it to
+        future sample counts.  When the two query sets and task lists are
+        equal (decided on the host), each (t, t) block's diagonal is clamped
+        at 0.
+
+        Two-level tiling: the query budget split in thirds, one for the
+        solved block ``K^-1 k(X, x1-block)`` (B1 query rows, reused against
+        every x0 chunk), one for the live x0 cross-kernel chunk, one for the
+        solves' temporaries."""
+        equal_x = x0 is x1
+        if not equal_x:
+            h0, h1 = (torch.as_tensor(v).cpu().numpy() for v in (x0, x1))
+            equal_x = h0.shape == h1.shape and bool(np.array_equal(h0, h1))
+        x0, x1 = self._query_points(x0), self._query_points(x1)
+        n = self._norm_n(n)
+        task0 = self.default_task if task0 is None else task0
+        task1 = self.default_task if task1 is None else task1
+        task0, inttask0 = _as_task_array(task0, self.num_tasks)
+        task1, inttask1 = _as_task_array(task1, self.num_tasks)
+        equal = equal_x and np.array_equal(task0, task1)
+        self._warm_for_query(n)
+        total_n = max(int(n.sum()), 1)
+        third = self._QUERY_CHUNK_BYTES // 3
+        item = torch.empty((), dtype=self.dtype).element_size()
+        nb = max(1, third // (self._QUERY_LIVE_FACTOR * total_n * self._query_itemsize()))
+        nb0, nb1 = int(min(x0.shape[0], nb)), int(min(x1.shape[0], nb))
+        B1 = int(max(nb1, min(x1.shape[0], third // (max(len(task1), 1) * total_n * item))))
+        pp = self._query_pre_permuted(n)
+        raw = self._raw_dict()
+        params = self._transformed(raw)
+        kmat_tasks = self._task_gram(raw)
+        scale, ls = params["scale"], params["lengthscales"]
+        solver = self._query_solver_any(raw, n)  # factorized once
+
+        def prior_tile(x0c, x1c):
+            return torch.stack([torch.stack([
+                kmat_tasks[..., t0, t1, None, None] * self._kernel_explicit(
+                    x0c[:, None, :], x1c[None, :, :], self.derivatives[t0],
+                    self.derivatives[t1], self.derivatives_coeffs[t0],
+                    self.derivatives_coeffs[t1], scale, ls)
+                for t1 in task1], -3) for t0 in task0], -4)
+
+        def solve_rows(x1c):
+            # pre-permuted rows in, equally permuted solve out: the einsum below
+            # contracts both sides in the same column order
+            kmat = self._cross_kmat(x1c, task1, n, params, kmat_tasks)
+            return solver.gram_matrix_solve(kmat, extra_ndim=2, pre_permuted=pp)
+
+        def per_block(x1b):      # (B1, d) -> (..., T0, T1, N0, B1)
+            t_sol = self._map_query_chunks(solve_rows, x1b, nb1, dim=-2)
+
+            def inner(x0c):      # (nb0, d) -> (..., T0, T1, nb0, B1)
+                kmat = self._cross_kmat(x0c, task0, n, params, kmat_tasks)
+                return prior_tile(x0c, x1b) - torch.einsum("...ani,...bmi->...abnm",
+                                                           kmat, t_sol)
+            return self._map_query_chunks(inner, x0, nb0, dim=-2)
+
+        pcov = self._map_query_chunks(per_block, x1, B1, dim=-1)
+        if equal:
+            for t in range(len(task0)):
+                pcov[..., t, t, :, :].diagonal(dim1=-2, dim2=-1).clamp_(min=0.0)
+        if inttask0 and inttask1:
+            return pcov[..., 0, 0, :, :]
+        if inttask0:
+            return pcov[..., 0, :, :, :]
+        if inttask1:
+            return pcov[..., :, 0, :, :]
+        return pcov
+
+    def post_error(self, x, task=None, n=None, confidence=0.99):
+        """``(pvar, q, q * sqrt(pvar))``: the posterior variance, the normal
+        quantile of the two-sided ``confidence`` and the error bound."""
+        q = _check_confidence(confidence)
+        pvar = self.post_var(x, task=task, n=n)
+        return pvar, q, q * torch.sqrt(pvar)
+
+    def post_ci(self, x, task=None, confidence=0.99):
+        """Posterior credible interval ``(pmean, pvar, q, lo, hi)`` from one
+        fused mean-and-variance pass.  As in the JAX package (and the
+        reference's published semantics) the half-width is ``q * perror``
+        with ``perror = q * sqrt(pvar)``."""
+        q = _check_confidence(confidence)
+        pmean, pvar = self.post_mean_var(x, task=task)
+        perror = q * torch.sqrt(pvar)
+        return pmean, pvar, q, pmean - q * perror, pmean + q * perror
+
+    def post_cubature_error(self, task=None, n=None, confidence=0.99):
+        """``(pcvar, q, q * sqrt(pcvar))`` for the integral over [0,1]^d."""
+        q = _check_confidence(confidence)
+        pcvar = self.post_cubature_var(task=task, n=n)
+        return pcvar, q, q * torch.sqrt(pcvar)
+
+    def post_cubature_ci(self, task=None, confidence=0.99):
+        """Cubature credible interval ``(pcmean, pcvar, q, lo, hi)``, of
+        half-width ``q * sqrt(pcvar)``."""
+        pcvar, q, pcerror = self.post_cubature_error(task=task, confidence=confidence)
+        pcmean = self.post_cubature_mean(task=task)
+        return pcmean, pcvar, q, pcmean - pcerror, pcmean + pcerror
+
     # ------------------------------------------------------------------
     # fitting
     # ------------------------------------------------------------------
@@ -597,9 +719,12 @@ class AbstractGP:
         CPU, 32 on the card).  Every step's record is kept, so early
         stopping, histories, verbose lines and checkpoints are those of
         K = 1; at most K - 1 steps past the stop are computed and dropped.
-        The JAX package's K = -1 (the whole fit in one device-side loop) and
-        ``masks`` (a selection over ``shape_batch``) are not ported yet and
-        raise ``NotImplementedError``.
+        The JAX package's K = -1 (the whole fit in one device-side loop) is
+        not ported yet and raises ``NotImplementedError``.
+
+        ``masks``: index arrays (one row per batch dim, or a boolean mask)
+        selecting the members of a ``shape_batch`` fleet whose losses are
+        summed; the others' parameters then get no gradient.
 
         ``checkpoint_path`` / ``checkpoint_every``: the whole optimization
         state (raw parameters, Rprop step sizes and previous gradients, the
@@ -618,10 +743,6 @@ class AbstractGP:
             raise ValueError("cannot fit without data")
         if not (isinstance(iterations, int) and iterations >= 0):
             raise ValueError("iterations must be a non-negative int")
-        if masks is not None:
-            raise NotImplementedError(
-                "masks select parameters over shape_batch, which the port gains with "
-                "batch fleets (ROADMAP queue 1 item 5)")
         if steps_per_dispatch is None:
             steps_per_dispatch = 1 if self.device.type == "cpu" else 32
         if steps_per_dispatch == -1:
@@ -641,7 +762,12 @@ class AbstractGP:
                  ("factor_task_kernel", "noise_task_kernel"))):
             store[name] = store_hists or (flag and any(trainable[k] for k in keys))
         hists = {f"{k}_hist": [] for k, on in store.items() if on}
-        d_out = int(np.prod(self.shape_batch)) if self.shape_batch else 1
+        if masks is not None:
+            masks = np.atleast_2d(np.asarray(masks))
+            d_out = (int(np.prod(np.empty(self.shape_batch)[(*masks,)].shape))
+                     if self.shape_batch else 1)
+        else:
+            d_out = int(np.prod(self.shape_batch)) if self.shape_batch else 1
         if verbose:
             head = "%16s | %-10s | %-10s | %-10s" % ("iter of %.1e" % iterations, "loss",
                                                      "term1", "term2")
@@ -759,24 +885,39 @@ class AbstractGP:
         the chosen loss over the raw parameters: the loss and its terms as
         0-d tensors (the terms NaN where the metric has none), ``grads`` one
         tensor per parameter, zero for those that are not trained."""
-        if masks is not None:
-            raise NotImplementedError("masks are not ported yet (ROADMAP queue 1 item 5)")
         trainable = {k: p.trainable for k, p in self.params.items()}
         cv_w = torch.as_tensor(np.asarray(cv_weights, dtype=np.float64), dtype=self.dtype,
                                device=self.device)
+        # the fleet members a masked loss sums over: (..., *masks, last axis)
+        sel = None if masks is None else tuple(
+            torch.as_tensor(np.asarray(m), device=self.device) for m in masks)
+        full = self.shape_batch + (1,)
+
+        def pick(t, last):
+            return t[(Ellipsis, *sel, last)]
 
         def loss_terms(raw, data):
             solver = self._solver_pure(raw, data)
             if metric == "MLL":
                 norm_term, logdet = solver.norm_logdet_terms()
-                term1 = norm_term.sum()
-                term2 = d_out / float(np.prod(logdet.shape)) * logdet.sum()
+                if sel is None:
+                    term1 = norm_term.sum()
+                    term2 = d_out / float(np.prod(logdet.shape)) * logdet.sum()
+                else:
+                    term1 = pick(norm_term, 0).sum()
+                    term2 = pick(logdet.expand(full), 0).sum()
                 return 0.5 * (term1 + term2 + mll_const), term1, term2
             if metric == "GCV":
                 numer, denom = solver.gcv_terms()
-                return (numer / denom).sum(), numer.sum(), denom.sum()
+                if sel is None:
+                    loss = (numer / denom).sum()
+                else:
+                    loss = (pick(numer, slice(None)) / pick(denom.expand(full),
+                                                            slice(None))).sum()
+                return loss, numer.sum(), denom.sum()
             coeffs, inv_diag = solver.coeffs(), solver.inv_diag()
-            loss = ((coeffs / inv_diag) ** 2 * cv_w).sum(-1, keepdim=True).sum()
+            squared = ((coeffs / inv_diag) ** 2 * cv_w).sum(-1, keepdim=True)
+            loss = squared.sum() if sel is None else pick(squared, 0).sum()
             nan = torch.full((), math.nan, dtype=loss.dtype, device=loss.device)
             return loss, nan, nan
 

@@ -4,18 +4,21 @@
 Everything on the training side runs in frequency ("tilde") space in
 O(n log n): eigenvalues are transforms of first Gram columns, the MLL, GCV
 and CV losses are sums over them, and posterior cubature reads the
-zero-frequency bin.  Three single-task solvers are ported, each
-differentiable in the raw hyperparameters (``fit``):
+zero-frequency block.  Three solvers, each differentiable in the raw
+hyperparameters (``fit``):
 
-* ``_PermSpectrumSolver`` -- lattice, full spectrum in the permuted bin order
-  of ``ops/perm_fft`` (kernels K1-K3), chosen on the CUDA card in float32 for
-  n = 2^14..2^22;
-* ``_HalfSpectrumSolver`` -- lattice, the Hermitian half spectrum over
-  ``torch.fft``, for float64 and small n;
-* ``_FastSolver`` -- the general solver over the model's ``_ft`` / ``_ift``
-  (the digital net's FWHT, kernel K4 on the card).
+* ``_PermSpectrumSolver`` -- single-task lattice, full spectrum in the
+  permuted bin order of ``ops/perm_fft`` (kernels K1-K3), chosen on the CUDA
+  card in float32 for n = 2^14..2^22;
+* ``_HalfSpectrumSolver`` -- single-task lattice, the Hermitian half
+  spectrum over ``torch.fft``, for float64 and small n;
+* ``_FastSolver`` -- the general multitask solver over the model's ``_ft`` /
+  ``_ift`` (the digital net's FWHT, kernel K4 on the card; the lattice's
+  full-spectrum FFT over ``torch.fft``) and the residue-block factorization
+  of ``linalg/fast_solver``.
 
-The multitask half of the general solver comes with the multitask slice.
+With ``FASTGPS_TORCH_DEBUG=1`` the general solver serves every model and each
+new solver is checked against the dense oracle (``utils/debug``).
 """
 
 import os
@@ -23,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from ..config import debug_checks_enabled
 from ..kernels import series
 from ..linalg import fast_solver as fs
 from ..ops import perm_fft
@@ -31,36 +35,49 @@ from ..ops.bitops import log2_int
 from .abstract import AbstractGP, _as_task_array, _cat
 
 
-def _eigenvalues(model, raw, n0, k1p, ft):
-    """Effective single-task eigenvalues (``fs.effective_lams`` of the
-    transformed first column)."""
+def _sorted_pairs(task_order, n):
+    """``(l0, l1, a, b, length)`` for every sorted task pair l0 <= l1: the
+    original tasks ``a <= b`` whose first-column parts it reads, and its
+    length ``n[task_order[l0]]``, in the order of ``_fit_data``'s parts."""
+    T = len(task_order)
+    out = []
+    for l0 in range(T):
+        for l1 in range(l0, T):
+            to0, to1 = task_order[l0], task_order[l1]
+            out.append((l0, l1, min(to0, to1), max(to0, to1), int(n[to0])))
+    return out
+
+
+def _eigenvalues(model, raw, n, task_order, inv_task_order, data, ft):
+    """``fs.effective_lams`` of every sorted task pair's first column
+    transformed by ``ft`` (one transform a pair, conjugated where the pair's
+    original order is reversed), recomputed from the series parts for every
+    solver handle, as in the JAX package: from the fit's ``data`` where
+    given, else from the model's cache.  Returns the eigenvalues, the task
+    Gram and the scale."""
     params = model._transformed(raw)
     kmat_tasks = model._task_gram(raw)
-    scale, ls, noise = params["scale"], params["lengthscales"], params["noise"]
-    k1 = series.kernel_from_parts_t(
-        k1p, model.derivatives[0], model.derivatives[0],
-        model.derivatives_coeffs[0], model.derivatives_coeffs[0], scale, ls)
-    lam = fs.effective_lams({(0, 0): ft(k1)}, (n0,), kmat_tasks, noise)[(0, 0)]
-    return lam, kmat_tasks, scale
-
-
-def _k1parts(model, data, n0):
-    """The first column's series parts: from the fit's ``data`` where given,
-    else from the model's cache."""
-    return data[0][0] if data is not None else model._get_k1parts_lam(0, 0, n0)
+    lam_pairs = {}
+    for i, (l0, l1, a, b, nlen) in enumerate(_sorted_pairs(task_order, n)):
+        k1p = data[0][i] if data is not None else model._get_k1parts_lam(a, b, nlen)
+        lam = ft(series.kernel_from_parts_t(
+            k1p, model.derivatives[a], model.derivatives[b], model.derivatives_coeffs[a],
+            model.derivatives_coeffs[b], params["scale"], params["lengthscales"]))
+        lam_pairs[(l0, l1)] = lam.conj() if task_order[l0] > task_order[l1] else lam
+    n_sorted = tuple(int(n[o]) for o in task_order)
+    lams = fs.effective_lams(lam_pairs, n_sorted, kmat_tasks, params["noise"], task_order,
+                             inv_task_order, model.adaptive_nugget)
+    return lams, kmat_tasks, params["scale"]
 
 
 class _FastSolver:
-    """Frequency-space solver handle for one (params, n) instance over the
-    model's ``_ft`` / ``_ift`` hooks, one task.
+    """Frequency-space solver handle for one (params, n-vector) instance over
+    the model's ``_ft`` / ``_ift`` hooks, any number of tasks.
 
-    The eigenvalues are recomputed from the cached series parts for every
-    handle, as in the JAX package (one transform of the first column).
     ``data``: the fit's ``(k1parts, ytildes)`` (``AbstractFastGP._fit_data``).
     """
 
     def __init__(self, model, raw, n, data=None):
-        fs.require_single_task(model.num_tasks)
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
         if not (self.n > 0).all():
@@ -68,11 +85,9 @@ class _FastSolver:
         self.task_order, self.inv_task_order = fs.sort_tasks(self.n)
         self.n_sorted = tuple(int(self.n[o]) for o in self.task_order)
         self._data = data
-        n0 = self.n_sorted[0]
-        lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, _k1parts(model, data, n0), model._ft_lam)
-        self.factor = fs.factorize({(0, 0): lam}, self.n_sorted, self.task_order,
-                                   self.inv_task_order)
+        lams, self.kmat_tasks, self.scale = _eigenvalues(
+            model, raw, self.n, self.task_order, self.inv_task_order, data, model._ft_lam)
+        self.factor = fs.factorize(lams, self.n_sorted, self.task_order, self.inv_task_order)
 
     def _split(self, ycat):
         offs = np.concatenate([[0], np.cumsum(self.n)])
@@ -89,7 +104,8 @@ class _FastSolver:
 
     def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
         """Diagonal of ``Y K^-1 Y^T`` for stacked rows ``ycat``, in tilde space:
-        the transforms are unitary, so ``y^T K^-1 y = <y~, z~>`` (Parseval)."""
+        the transforms are unitary, so ``y^T K^-1 y = sum_l <y~_l, z~_l>``
+        (Parseval)."""
         yst = [self.model._ft_q(y, pre_permuted) for y in self._split(ycat)]
         zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
         return sum(torch.real(a.conj() * b).sum(-1) for a, b in zip(yst, zst))
@@ -118,10 +134,11 @@ class _FastSolver:
         return _cat([torch.real(self.model._ift(z)) for z in zts], -1)
 
     def inv_diag(self):
-        """Exact diagonal of ``K^-1`` in point space."""
+        """Exact diagonal of ``K^-1`` in point space (concatenated over tasks)."""
         cols = fs.inv_diag_pointspace(self.factor, self.model._char_kind,
                                       self.model._point_class)
-        return _cat(cols, -1)
+        batch = np.broadcast_shapes(*[tuple(c.shape[:-1]) for c in cols])
+        return _cat([c.expand(batch + tuple(c.shape[-1:])) for c in cols], -1)
 
     def dc_block(self):
         return fs.dc_block(self.factor)
@@ -139,11 +156,11 @@ class _HalfSpectrumSolver:
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
         self.task_order, self.inv_task_order = (0,), (0,)
-        n0 = int(self.n[0])
-        self.n_sorted = (n0,)
+        self.n_sorted = (int(self.n[0]),)
         self._data = data
-        self.lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, _k1parts(model, data, n0), model._ft_lam_half)
+        lams, self.kmat_tasks, self.scale = _eigenvalues(
+            model, raw, self.n, self.task_order, self.inv_task_order, data, model._ft_lam_half)
+        self.lam = lams[(0, 0)]
         self.logdet = self._wsum(torch.log(self.lam.abs()))
         self.factor = fs.FastFactor(
             lam_eff=None, inv=None, logdet=self.logdet, n_sorted=self.n_sorted,
@@ -212,11 +229,11 @@ class _PermSpectrumSolver:
         self.model = model
         self.n = np.asarray(n, dtype=np.int64)
         self.task_order, self.inv_task_order = (0,), (0,)
-        n0 = int(self.n[0])
-        self.n_sorted = (n0,)
+        self.n_sorted = (int(self.n[0]),)
         self._data = data
-        self.lam, self.kmat_tasks, self.scale = _eigenvalues(
-            model, raw, n0, _k1parts(model, data, n0), model._ft_lam_perm)
+        lams, self.kmat_tasks, self.scale = _eigenvalues(
+            model, raw, self.n, self.task_order, self.inv_task_order, data, model._ft_lam_perm)
+        self.lam = lams[(0, 0)]
         self.logdet = torch.log(self.lam.abs()).sum(-1)
         self.factor = fs.FastFactor(
             lam_eff=None, inv=None, logdet=self.logdet, n_sorted=self.n_sorted,
@@ -258,12 +275,22 @@ class _PermSpectrumSolver:
         return val[..., None].expand(val.shape + (n0,))
 
     def gram_quad_diag(self, ycat, extra_ndim=0, pre_permuted=False):
-        if pre_permuted and self.lam.ndim == 1:
+        if pre_permuted:
             # fused kernel K3: sum_b Re(1/lam_b) |ft(row)_b|^2 per row, the
             # spectrum never written to device memory -- the posterior-variance
-            # hot path
+            # hot path; a fleet (batched lam) runs it once per member, each
+            # with its own weights
+            n0 = int(self.n[0])
             w = torch.real(1.0 / self.lam)
-            return perm_fft.pfft_quad(ycat, w, int(self.n[0]))
+            if w.ndim == 1:
+                return perm_fft.pfft_quad(ycat, w, n0)
+            nb = ycat.ndim - 1 - extra_ndim
+            batch = np.broadcast_shapes(tuple(ycat.shape[:nb]), tuple(w.shape[:-1]))
+            rows = tuple(ycat.shape[nb:-1])
+            yb = ycat.expand(batch + rows + (n0,)).reshape((-1,) + rows + (n0,))
+            wb = w.expand(batch + (n0,)).reshape(-1, n0)
+            return torch.stack([perm_fft.pfft_quad(yb[i], wb[i], n0)
+                                for i in range(wb.shape[0])]).reshape(batch + rows)
         yst = self.model._ft_perm_q(ycat, pre_permuted)
         zt = yst / self._lam_b(extra_ndim)
         return torch.real(torch.conj(yst) * zt).sum(-1)
@@ -381,20 +408,22 @@ class AbstractFastGP(AbstractGP):
     # -- half-spectrum (rfft) and permuted-spectrum paths ---------------
     def _use_half_spectrum(self, n) -> bool:
         """rfft single-task solver: a model with the half-transform hooks, one
-        task, n >= 2."""
+        task, n >= 2, the dense debug oracle off (it checks the general
+        solver)."""
         if self._ft_lam_half is None or self.num_tasks != 1:
             return False
-        return int(np.asarray(n)[0]) >= 2
+        return int(np.asarray(n)[0]) >= 2 and not debug_checks_enabled()
 
     def _use_perm_spectrum(self, n) -> bool:
         """Permuted-spectrum solver (kernels K1-K3): CUDA float32, one task, a
-        supported n.  ``FASTGPS_TORCH_FORCE_PERM=1`` takes it on the CPU too
-        (in float32), where the plain kernel versions run."""
+        supported n, the dense debug oracle off.  ``FASTGPS_TORCH_FORCE_PERM=1``
+        takes it on the CPU too (in float32), where the plain kernel versions
+        run."""
         if self._ft_lam_perm is None or self.num_tasks != 1:
             return False
         if not perm_fft.supported(int(np.asarray(n)[0])):
             return False
-        if self.dtype != torch.float32:
+        if self.dtype != torch.float32 or debug_checks_enabled():
             return False
         return self.device.type == "cuda" or os.environ.get("FASTGPS_TORCH_FORCE_PERM") == "1"
 
@@ -447,18 +476,18 @@ class AbstractFastGP(AbstractGP):
         key = (self._version, tuple(int(v) for v in n))
         if key not in self._solver_cache:
             self._warm_k1parts(n)
-            self._solver_cache[key] = make_solver(self, self._raw_dict(), n)
+            solver = make_solver(self, self._raw_dict(), n)
+            if debug_checks_enabled():
+                from ..utils.debug import check_fast_solver
+                check_fast_solver(self, solver)
+            self._solver_cache[key] = solver
             if len(self._solver_cache) > 8:
                 self._solver_cache.pop(next(iter(self._solver_cache)))
         return self._solver_cache[key]
 
     def _warm_k1parts(self, n):
-        task_order, _ = fs.sort_tasks(n)
-        T = self.num_tasks
-        for l0 in range(T):
-            for l1 in range(l0, T):
-                to0, to1 = task_order[l0], task_order[l1]
-                self._get_k1parts_lam(min(to0, to1), max(to0, to1), int(n[to0]))
+        for _, _, a, b, nlen in _sorted_pairs(fs.sort_tasks(n)[0], n):
+            self._get_k1parts_lam(a, b, nlen)
 
     def _warm_for_fit(self):
         self._fit_data()
@@ -472,17 +501,19 @@ class AbstractFastGP(AbstractGP):
 
     def _fit_data(self):
         """``(k1parts, ytildes)``: the data the loss reads, from the caches
-        (built on first use); the ytilde leg in the chosen solver's form
-        (permuted, half or full spectrum)."""
-        fs.require_single_task(self.num_tasks)
+        (built on first use): the parts of every sorted task pair, and the
+        ytilde leg in the chosen solver's form (permuted, half or full
+        spectrum; one a task)."""
+        pairs = _sorted_pairs(fs.sort_tasks(self.n)[0], self.n)
+        k1parts = tuple(self._get_k1parts_lam(a, b, nlen) for _, _, a, b, nlen in pairs)
         n0 = int(self.n[0])
         if self._use_perm_spectrum(self.n):
-            yt = self._get_ytilde_perm(0, n0)
+            yts = (self._get_ytilde_perm(0, n0),)
         elif self._use_half_spectrum(self.n):
-            yt = self._get_ytilde_half(0, n0)
+            yts = (self._get_ytilde_half(0, n0),)
         else:
-            yt = self._get_ytilde(0, n0)
-        return (self._get_k1parts_lam(0, 0, n0),), (yt,)
+            yts = tuple(self._get_ytilde(l, int(self.n[l])) for l in range(self.num_tasks))
+        return k1parts, yts
 
     def _solver_pure(self, raw, data=None):
         return make_solver(self, raw, self.n, data=data)
@@ -564,6 +595,32 @@ class AbstractFastGP(AbstractGP):
         pcvar = self.scale * kmat_tasks[..., tidx, tidx] - self.scale ** 2 * term
         pcvar = torch.clamp(pcvar, min=0.0)
         return pcvar[..., 0] if inttask else pcvar
+
+    def post_cubature_cov(self, task0=None, task1=None, n=None):
+        """Posterior cubature covariance between tasks, (..., T0, T1); its
+        diagonal clamped at 0 when the two task lists are equal."""
+        n = self._norm_n(n)
+        solver = self._solver(n)
+        kmat_tasks = self.gram_matrix_tasks
+        task0 = self.default_task if task0 is None else task0
+        task1 = self.default_task if task1 is None else task1
+        task0, inttask0 = _as_task_array(task0, self.num_tasks)
+        task1, inttask1 = _as_task_array(task1, self.num_tasks)
+        term = self._cubature_quad_term(solver, task0, task1)
+        t0 = torch.as_tensor(task0, device=self.device)
+        t1 = torch.as_tensor(task1, device=self.device)
+        prior = kmat_tasks[..., t0, :][..., :, t1]
+        pccov = self.scale[..., None] * prior - self.scale[..., None] ** 2 * term
+        if np.array_equal(task0, task1):
+            pccov = pccov.clone()
+            pccov.diagonal(dim1=-2, dim2=-1).clamp_(min=0.0)
+        if inttask0 and inttask1:
+            return pccov[..., 0, 0]
+        if inttask0:
+            return pccov[..., 0, :]
+        if inttask1:
+            return pccov[..., :, 0]
+        return pccov
 
 
 def _all_pow2(n):

@@ -40,6 +40,11 @@ radix-16 passes, each op two launches:
   fixed order; ``torch.sum`` over them follows, so the result is
   deterministic (no atomics).
 
+Each kernel carries its row in ``blockIdx.y``, which CUDA caps at 65535, so
+the wrappers launch the rows in blocks of at most :data:`MAX_GRID_ROWS`
+(:func:`row_blocks`), the scratch reused from block to block; the
+arithmetic of a row does not depend on its block.
+
 Autograd: :func:`pfft` (on real rows) and :func:`pifft_real` are autograd
 Functions, each the other's backward, so a differentiated loss on the card
 runs K1 and K2 and nothing else: the backward of ``pfft`` is
@@ -73,8 +78,12 @@ from .bitops import log2_int
 _MIN_M = 14           # below this torch.fft is used (half-spectrum solver)
 _MAX_M = 22
 
-# launches of each kernel op since the last reset (a call is two kernel launches; the
-# CPU plain versions do not count)
+# CUDA's limit on gridDim.y, which carries the row index in every K1-K3 launch:
+# the wrappers launch rows in blocks of at most this many (read at each call)
+MAX_GRID_ROWS = 65535
+
+# launches of each kernel op since the last reset (one per block of at most MAX_GRID_ROWS
+# rows, itself two kernel launches; the CPU plain versions do not count)
 launches = {"pfft": 0, "pifft_real": 0, "quad": 0}
 
 
@@ -474,6 +483,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def row_blocks(R: int, cap: int):
+    """``(r0, r1)`` blocks of at most ``cap`` consecutive rows covering
+    ``range(R)``: one kernel launch each."""
+    return [(r0, min(R, r0 + cap)) for r0 in range(0, R, cap)]
+
+
 def _launch(fn, name, dev, *args):
     """Call the C entry point ``fn`` on ``dev``'s current stream; raise on a
     CUDA error."""
@@ -493,43 +508,58 @@ def _as_planes(z, n: int, what: str):
     return v
 
 
-def _pfft_cuda(x, n: int):
+def _pfft_cuda(x, n: int, out=None):
+    """K1 on CUDA rows.  ``out``, a test hook: a caller-owned (R, n)
+    complex64 output (a test fills it with NaN to see that every row block
+    is written); no path in the package passes it."""
     R = x.shape[0]
     if x.is_complex():
         xin = _as_planes(x, n, "pfft rows")
     else:
         xin = x.to(torch.float32).contiguous()
         _check(xin, (R, n), "pfft rows")
-    out = torch.empty((R, n), dtype=torch.complex64, device=x.device)
+    if out is None:
+        out = torch.empty((R, n), dtype=torch.complex64, device=x.device)
+    _check(torch.view_as_real(out), (R, n, 2), "pfft output")
     A, B = _slab_plan(n)
     t = _dev_slab_tables(n, x.device)
-    y = torch.empty((R, A, B, 2), dtype=torch.float32, device=x.device)
-    _launch("fgp_pfft", "pfft", x.device, _ptr(xin), int(x.is_complex()),
-            *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y), _ptr(out),
-            R, A, log2_int(_plan(n)[0]), log2_int(B))
+    blocks = row_blocks(R, MAX_GRID_ROWS)
+    y = torch.empty((min(R, MAX_GRID_ROWS), A, B, 2), dtype=torch.float32, device=x.device)
+    for r0, r1 in blocks:
+        _launch("fgp_pfft", "pfft", x.device, _ptr(xin[r0:r1]), int(x.is_complex()),
+                *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y),
+                _ptr(out[r0:r1]), r1 - r0, A, log2_int(_plan(n)[0]), log2_int(B))
     return out
 
 
-def _pifft_real_cuda(X, n: int):
+def _pifft_real_cuda(X, n: int, out=None):
+    """K2 on CUDA spectra.  ``out``, a test hook as in :func:`_pfft_cuda`: a
+    caller-owned (R, n) float32 output."""
     R = X.shape[0]
     Xin = _as_planes(X, n, "pifft_real spectrum")
-    out = torch.empty((R, n), dtype=torch.float32, device=X.device)
+    if out is None:
+        out = torch.empty((R, n), dtype=torch.float32, device=X.device)
+    _check(out, (R, n), "pifft_real output")
     A, B = _slab_plan(n)
     t = _dev_slab_tables(n, X.device)
-    y = torch.empty((R, A, B, 2), dtype=torch.float32, device=X.device)
-    _launch("fgp_pifft_real", "pifft_real", X.device, _ptr(Xin),
-            *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y), _ptr(out),
-            R, A, log2_int(_plan(n)[0]), log2_int(B))
+    blocks = row_blocks(R, MAX_GRID_ROWS)
+    y = torch.empty((min(R, MAX_GRID_ROWS), A, B, 2), dtype=torch.float32, device=X.device)
+    for r0, r1 in blocks:
+        _launch("fgp_pifft_real", "pifft_real", X.device, _ptr(Xin[r0:r1]),
+                *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y),
+                _ptr(out[r0:r1]), r1 - r0, A, log2_int(_plan(n)[0]), log2_int(B))
     return out
 
 
-def quad_partials(x, wk, n: int, mean):
+def quad_partials(x, wk, n: int, mean, out=None):
     """K3: (R, n) float32 rows ``x``, their (R,) means and (Bh, A0, Bl)
     weights -> per-row partial sums of ``wk * |pfft(x - mean)|^2``: (R, A0)
     per k1 of ``_plan(n)`` from the plain version for CPU tensors,
     (R, A/2+1) per half-spectrum slab of ``_slab_plan(n)`` from the two
     kernels for CUDA tensors.  The kernel centres a row as it loads it, so
-    the caller writes no centred copy."""
+    the caller writes no centred copy.  ``out``, a test hook as in
+    :func:`_pfft_cuda`: a caller-owned (R, A/2+1) float32 output for the
+    kernels."""
     if x.device.type == "cpu":
         return quad_plain(x - mean[:, None], wk, n)
     R = x.shape[0]
@@ -541,12 +571,15 @@ def quad_partials(x, wk, n: int, mean):
     t = _dev_slab_tables(n, x.device)
     wf = fold_weights(wk, n)
     H = A // 2 + 1
-    y = torch.empty((R, H, B, 2), dtype=torch.float32, device=x.device)
-    partial = torch.empty((R, H), dtype=torch.float32, device=x.device)
-    _launch("fgp_quad", "quad", x.device,
-            *[_ptr(v) for v in (x, mean, t["twa"], t["qt1"], t["qt2"], t["qtw"], wf, y,
-                                partial)],
-            R, A, log2_int(B))
+    blocks = row_blocks(R, MAX_GRID_ROWS)
+    y = torch.empty((min(R, MAX_GRID_ROWS), H, B, 2), dtype=torch.float32, device=x.device)
+    partial = torch.empty((R, H), dtype=torch.float32, device=x.device) if out is None else out
+    _check(partial, (R, H), "quad partials")
+    for r0, r1 in blocks:
+        _launch("fgp_quad", "quad", x.device,
+                *[_ptr(v) for v in (x[r0:r1], mean[r0:r1], t["twa"], t["qt1"], t["qt2"],
+                                    t["qtw"], wf, y, partial[r0:r1])],
+                r1 - r0, A, log2_int(B))
     return partial
 
 

@@ -147,8 +147,15 @@ def test_untrainable_parameters_stay_put():
 
 
 def test_unported_fit_options_raise():
-    gt, _ = _pair("lattice", seed=7)
-    with pytest.raises(NotImplementedError, match="batch fleets"):
-        gt.fit(iterations=1, verbose=0, masks=[[0]])
+    """``masks`` (once refused) fit only the selected fleet members;
+    ``steps_per_dispatch=-1`` is still unported and raises."""
+    gt = ft.FastGPLattice(2, seed_for_seq=7, shape_batch=(2,), shape_lengthscales=(2, 2),
+                          device="cpu")
+    x = gt.get_x_next_host(32)
+    gt.add_y_next(torch.from_numpy(np.stack([_f(x), 2 * _f(x)])))
+    before = gt.lengthscales.clone()
+    gt.fit(iterations=3, verbose=0, masks=[[1]])
+    assert torch.equal(gt.lengthscales[0], before[0])
+    assert not torch.equal(gt.lengthscales[1], before[1])
     with pytest.raises(NotImplementedError, match="steps_per_dispatch=-1"):
         gt.fit(iterations=1, verbose=0, steps_per_dispatch=-1)

@@ -140,25 +140,42 @@ def test_perm_path_matches_jax_f32(monkeypatch, noise):
 
 def test_no_silent_cpu_fallback_and_unported_solver_raises(monkeypatch):
     """Without a card, the default device raises instead of moving to the
-    CPU; a model needing the multitask solver raises NotImplementedError."""
+    CPU.  A model with two tasks (once refused here) takes the multitask
+    solver: its posterior mean agrees with the dense oracle (atol 1e-8)."""
+    from fastgaussianprocesses_torch.utils.debug import dense_gram
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ft.FastGPLattice(2, seed_for_seq=1)
-    gp = ft.FastGPLattice(2, num_tasks=2, seed_for_seq=1, device="cpu")
-    gp.get_x_next([4, 4])
-    gp.add_y_next([torch.zeros(4, dtype=torch.float64)] * 2)
-    with pytest.raises(NotImplementedError, match="multitask"):
-        gp.post_mean(np.zeros((2, 2)))
+    gp = ft.FastGPLattice(2, num_tasks=2, seed_for_seq=1, noise=1e-4, device="cpu")
+    xs = gp.get_x_next_host([8, 4])
+    ys = [_f_doc(x) for x in xs]
+    gp.add_y_next([torch.from_numpy(y) for y in ys])
+    xq = np.random.default_rng(1).uniform(size=(3, 2))
+    S = gp.gram_matrix_tasks.numpy()
+    kx = np.concatenate([S[0, l] * gp.kernel(torch.from_numpy(xq)[:, None, :],
+                                             gp.get_xb(l)[None, :, :]).numpy() for l in range(2)], -1)
+    K = torch.from_numpy(dense_gram(gp))
+    want = kx @ torch.linalg.solve(K, torch.from_numpy(np.concatenate(ys))).numpy()
+    np.testing.assert_allclose(gp.post_mean(xq, task=0).numpy(), want, atol=1e-8)
 
 
 def test_debug_flag_refuses_to_build_a_model(monkeypatch):
-    """The dense debug oracle is not ported: the flag that selects it stops
-    model construction instead of being ignored."""
+    """The dense debug oracle is ported: with the flag set a model builds,
+    takes the general solver and checks each solver it caches against the
+    dense oracle (``utils/debug.check_fast_solver``)."""
+    from fastgaussianprocesses_torch.models.fast import _FastSolver
+    from fastgaussianprocesses_torch.utils import debug
     monkeypatch.setenv("FASTGPS_TORCH_DEBUG", "1")
-    with pytest.raises(NotImplementedError, match="FASTGPS_TORCH_DEBUG"):
-        ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
+    checked = []
+    check = debug.check_fast_solver
+    monkeypatch.setattr(debug, "check_fast_solver", lambda m, s: checked.append(s) or check(m, s))
+    gp = ft.FastGPLattice(2, seed_for_seq=1, noise=1e-4, device="cpu")
+    gp.add_y_next(torch.from_numpy(_f_doc(gp.get_x_next_host(16))))
+    gp.post_cubature_var()
+    assert len(checked) == 1 and isinstance(checked[0], _FastSolver)
     monkeypatch.setenv("FASTGPS_TORCH_DEBUG", "0")
-    ft.FastGPLattice(2, seed_for_seq=1, device="cpu")
+    assert isinstance(gp._solver(n=32), _HalfSpectrumSolver)
+    assert len(checked) == 1
 
 
 def _imports(path):
