@@ -8,7 +8,8 @@ Phases; any failure raises and the exit code is not 0:
 
 1. The card's name and power limit; build ``csrc/perm_fft.cu`` and
    ``csrc/fwht.cu`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
-   started together).
+   started together), then the host lattice library
+   ``points/_native/fastgp_native.cpp`` with ``g++``.
 2. The slices: ``FastGPLattice(d=8, seed_for_seq=7, alpha=2)``, then
    ``FastGPDigitalNetB2(d=8, seed_for_seq=7, alpha=2)``, each in float32 on
    the card, n = 2^20 points, hyperparameters from a seed loaded through
@@ -102,9 +103,48 @@ Phases; any failure raises and the exit code is not 0:
    float64 against the CPU's) on coefficients, log-determinant, MLL and its
    gradient's signs, ``post_mean_var``, ``post_cov`` and
    ``post_cubature_cov``; one ``{"multitask": ...}`` line.
-7. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
-   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's
-   roles) and, last, ``{"ok": true, "device": {...}}``.
+7. The HMC hyperposterior (``fit/hmc.sample_gp_hyperposterior``: ChEES,
+   dense mass, every chain a row of one solver), ``StandardGP`` and the
+   examples, float32 on the card unless said otherwise, the plain versions
+   of K1, K2 and K4 made to raise; each HMC cell with the launch counters
+   reset just before and read just after, every gradient launching K1 and
+   K2 once (lattice) or K4 twice (digital net), each on all 8 chains' rows,
+   every log-density finite; samples/s as ``bench.py`` computes it
+   (``num_samples * chains / wall``, warmup included), acceptance, step
+   size, mean leapfrog count, worst R-hat, least ESS, gradient evaluations,
+   and a profiled stretch of 6 iterations (device busy share, launches and
+   device time a gradient):
+
+   * ``hmc_lattice``: ``bench.py:bench_hmc``, ``FastGPLattice(d=4,
+     seed_for_seq=7, alpha=2)`` at n = 2^14 (the permuted path: K1, K2 at
+     R = 8), ``fit(iterations=30)``, 8 chains, 300 warmup, 50 samples;
+   * ``hmc_flagship``: ``FastGPLattice(d=8)`` at n = 2^20, ``bench.py``'s
+     y and hyperparameters, 8 chains, 20 warmup, 20 samples, at most 32
+     leapfrog steps;
+   * ``hmc_dnb2``: ``FastGPDigitalNetB2(d=4)`` at n = 2^14 (K4 at R = 8),
+     8 chains, 50 warmup, 50 samples;
+   * ``standard``: ``StandardGP(8, seed_for_seq=7)`` at n = 2^13 in float64
+     and float32 (``fit(iterations=20)``, the step timed and profiled,
+     ``post_mean_var`` of 4096 points, the cubature mean and variance,
+     ``post_ci``, peak memory; float32 printed against float64), a
+     derivative-informed model (d = 3, (f, grad f) as 4 tasks at 2^9) and one
+     on ``Halton(8, seed=7)`` points at 2^12;
+   * the examples ``simple``, ``multitask``, ``batch_multitask``,
+     ``derivative_informed`` and ``hyperposterior`` at their default sizes;
+   * host point generation at d = 8, n = 2^20 (best of 3): the lattice from
+     the g++ library and from numpy (held bit for bit equal), and the
+     digital net's numpy doubling;
+   * cross-checks, last: the card's sampler against the CPU's on the same
+     draws (lattice n = 2^8, d = 2, noise 1.0, float64, 4 chains, 10
+     iterations; 1e-8),
+     each of 8 chains' log-density and gradient at n = 2^14, d = 4 (card
+     float32 against CPU float32 and float64), and ``StandardGP``'s float64
+     on the card against the CPU's at n = 2^10, noise 1e-2 (1e-9).
+
+   One ``{"hmc_standard_examples": ...}`` line.
+8. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
+   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's and
+   phase 7's roles) and, last, ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
 does (public API only), for the package in DIR (default: this checkout),
@@ -112,6 +152,7 @@ and prints one ``{"fwht_times": ...}`` line: a way to time another
 checkout (a parent commit) on the same card.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -673,10 +714,10 @@ class refuse_plain:
             setattr(m, k, f)
 
 
-def fit_model(torch, cls, n, dtype=None, device=None, **kw):
-    """``bench.py``'s fit configuration: d = 8, seed 7, alpha 2, y = sin(2 pi x0)
-    cos(2 pi x1) + sum x, default hyperparameters."""
-    gp = cls(D, seed_for_seq=7, alpha=2, dtype=dtype, device=device, **kw)
+def fit_model(torch, cls, n, dtype=None, device=None, d=D, **kw):
+    """``bench.py``'s fit configuration: d = 8 (or ``d``), seed 7, alpha 2,
+    y = sin(2 pi x0) cos(2 pi x1) + sum x, default hyperparameters."""
+    gp = cls(d, seed_for_seq=7, alpha=2, dtype=dtype, device=device, **kw)
     gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(n))))
     return gp
 
@@ -1484,6 +1525,376 @@ def phase_multitask(torch, ft, tp, tf):
     return out
 
 
+
+# ---- phase 7: the HMC hyperposterior, StandardGP and the examples -----------------------
+
+N_HMC, D_HMC, C_HMC = 1 << 14, 4, 8   # bench.py:bench_hmc's model, its 8 chains
+N_STD = 1 << 13                       # StandardGP: a 20-step fit near a second
+# the kernels an HMC gradient launches once, on all chains' rows
+HMC_GRAD_KERNELS = {"lattice": {"pfft": 1, "pifft_real": 1}, "dnb2": {"fwht": 2}}
+
+
+class row_spy:
+    """Within the block, record the rows of every K1, K2 and K4 launch (the
+    wrappers' launch counters are untouched)."""
+
+    def __init__(self, tp, tf):
+        self.mods = ((tp, "_pfft_cuda", "pfft"), (tp, "_pifft_real_cuda", "pifft_real"),
+                     (tf, "_fwht_cuda", "fwht"))
+        self.rows = {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, k) for m, k, _ in self.mods]
+        for (m, k, name), f in zip(self.mods, self.saved):
+            def spy(x, *a, _f=f, _name=name, **kw):
+                self.rows.setdefault(_name, set()).add(x.numel() // x.shape[-1])
+                return _f(x, *a, **kw)
+            setattr(m, k, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, k, _), f in zip(self.mods, self.saved):
+            setattr(m, k, f)
+
+
+def phase_hmc(torch, tp, tf, label, gp, kind, kw):
+    """One HMC cell on the card with the plain kernel versions refused:
+    ``sample_gp_hyperposterior(gp, **kw)`` with the launch counters reset
+    just before and read just after; every gradient must launch the kernels
+    of ``HMC_GRAD_KERNELS[kind]`` once (K4 twice), each on all chains' rows,
+    and every log-density be finite.  Then 6 iterations of the same sampler
+    profiled (device busy share, launches and device time a gradient)."""
+    from fastgaussianprocesses_torch.fit import hmc as th
+    sync = torch.cuda.synchronize
+    chains = kw["num_chains"]
+    gp._warm_for_fit()   # the observations' transform is the fit's data, not a gradient's
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    with refuse_plain(tp, tf), row_spy(tp, tf) as spy:
+        for c in (tp, tf):
+            c.reset_launches()
+        t0 = time.perf_counter()
+        res, diags = th.sample_gp_hyperposterior(gp, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _counts((tp, tf))
+    lp = res.log_prob
+    grads = res.num_grad_evals
+    iters = kw["num_warmup"] + kw["num_samples"]
+    out = dict(wall_s=wall, samples_per_s=kw["num_samples"] * chains / wall,
+               accept=float(res.accept_rate), step_size=float(res.step_size),
+               mean_leapfrog=res.mean_leapfrog, rhat=max(d["rhat"] for d in diags.values()),
+               ess=min(d["ess"] for d in diags.values()), grad_evals=grads,
+               grad_evals_yardstick=iters * (2 * res.mean_leapfrog + 2),
+               launches=counts, rows={k: sorted(v) for k, v in spy.rows.items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {label}: {wall:.2f} s for {iters} iterations x {chains} chains, "
+        f"{out['samples_per_s']:.2f} samples/s (num_samples * chains / wall, warmup included); "
+        f"accept {out['accept']:.3f}, step size {out['step_size']:.4g}, mean leapfrog "
+        f"{out['mean_leapfrog']:.2f}, worst R-hat {out['rhat']:.4f}, least ESS {out['ess']:.1f}; "
+        f"gradient evaluations {grads} (the JAX package's 2 L + 2 an iteration: "
+        f"{out['grad_evals_yardstick']:.0f}); launches {counts}, rows {out['rows']}; "
+        f"peak {out['peak_gib']:.2f} GiB")
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"{label}: non-finite log_prob")
+    for k, per in HMC_GRAD_KERNELS[kind].items():
+        if counts[k] != per * grads or out["rows"].get(k) != [chains]:
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times on rows "
+                                 f"{out['rows'].get(k)} for {grads} gradients of {chains} chains")
+    logprob, init = th.gp_log_density(gp)
+    short = dict(num_warmup=3, num_samples=3, num_chains=chains, mass_matrix="dense",
+                 trajectory_adapt="chees", target_accept=0.8,
+                 max_leapfrog=kw.get("max_leapfrog"))
+    n_short = []
+
+    def run():
+        n_short.append(th.hmc(logprob, init, 1, **short).num_grad_evals)
+    with refuse_plain(tp, tf):
+        prof = call_profile(torch, run)
+    g = n_short[-1]
+    out["profile"] = dict(prof, grad_evals=g, device_ms_a_grad=prof["device_ms"] / g,
+                          launches_a_grad=prof["launches"] / g,
+                          wall_ms_a_grad=prof["wall_ms"] / n_short[0])
+    log(f"  {label} profiled (6 iterations, {g} gradients): wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['device_ms']:.1f} ms ({100 * prof['busy']:.1f}%), {prof['launches']} "
+        f"launches; a gradient: {out['profile']['device_ms_a_grad']:.3f} ms of device time, "
+        f"{out['profile']['launches_a_grad']:.0f} launches")
+    return out
+
+
+def hmc_crosscheck(torch, ft, tp, tf):
+    """The sampler on the card against the CPU on the same draws (lattice,
+    n = 2^8, d = 2, float64, 4 chains, 10 iterations): samples, log-densities
+    and the final positions within 1e-8 relative.  The model has noise 1.0:
+    the two FFTs round differently, and at the default noise (1e-8) the
+    smallest eigenvalues carry ~1e-6 relative rounding into the gradient,
+    which the trajectories and dual averaging amplify (on the CPU, scaling
+    the positions by 1 + 1e-15 moves log_prob by 5.7e-5 after 10 iterations
+    at noise 1e-8, by 2.9e-12 at noise 1.0).  Then each chain's
+    log-density and gradient at 8 fixed raw points (n = 2^14, d = 4, noise
+    1.0 as phase 5's gradient check, so that float32's eigenvalue floor does
+    not decide the surface): the card's float32 against the CPU's float32
+    plain kernels (value 5e-5, phase 4's card-against-CPU float32 tolerance)
+    and the CPU's float64 evaluated with float32's floor (2e-4, phase 5's),
+    every gradient entry above 1e-3 of its parameter's largest agreeing in
+    sign with each."""
+    from fastgaussianprocesses_torch.fit import hmc as th
+    from fastgaussianprocesses_torch.linalg import fast_solver as fs
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        gp = fit_model(torch, ft.FastGPLattice, 1 << 8, d=2, dtype=torch.float64, device=dev,
+                       noise=1.0)
+        logprob, init = th.gp_log_density(gp)
+        with refuse_plain(tp, tf) if dev == "cuda" else contextlib.nullcontext():
+            runs[dev] = th.hmc(logprob, init, 5, num_warmup=5, num_samples=5, num_chains=4,
+                               mass_matrix="dense", trajectory_adapt="chees", target_accept=0.9)
+    a, b = runs["cuda"], runs["cpu"]
+    errs = {"log_prob": rel_err(a.log_prob, b.log_prob)[0],
+            "q": rel_err(a.state[0][0], b.state[0][0])[0]}
+    errs.update({f"samples[{k}]": rel_err(a.samples[k], b.samples[k])[0] for k in a.samples})
+    log("  sampler, card f64 vs cpu f64 on the same draws (10 iterations, 4 chains): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (tol 1e-8)")
+    if not all(v < 1e-8 for v in errs.values()):
+        raise AssertionError("HMC: the card's sampler and the CPU's disagree")
+    rng = np.random.default_rng(8)
+    res = {}
+    floor_c = fs.EIG_FLOOR_C
+    for label, dev, dt, fscale in (("card f32", "cuda", torch.float32, 1.0),
+                                   ("cpu f32 (plain kernels)", "cpu", torch.float32, 1.0),
+                                   ("cpu f64 (float32 floor)", "cpu", torch.float64,
+                                    EPS32 / float(np.finfo(np.float64).eps))):
+        gp = fit_model(torch, ft.FastGPLattice, N_HMC, d=D_HMC, dtype=dt, device=dev, noise=1.0)
+        logprob, init = th.gp_log_density(gp)
+        if not res:
+            pts = {k: v.double().cpu().numpy()[None]
+                   + 0.3 * rng.standard_normal((8,) + tuple(v.shape)) for k, v in init.items()}
+        leaves = {k: torch.tensor(v, dtype=dt, device=gp.device, requires_grad=True)
+                  for k, v in pts.items()}
+        fs.EIG_FLOOR_C = floor_c * fscale
+        try:
+            with refuse_plain(tp, tf) if dev == "cuda" else contextlib.nullcontext():
+                val = logprob(leaves)
+                g = torch.autograd.grad(val.sum(), list(leaves.values()))
+        finally:
+            fs.EIG_FLOOR_C = floor_c
+        res[label] = (val.detach().double().cpu().numpy(),
+                      {k: t.double().cpu().numpy() for k, t in zip(leaves, g)})
+    v0, g0 = res["card f32"]
+    for ref, tol in (("cpu f32 (plain kernels)", 5e-5), ("cpu f64 (float32 floor)", 2e-4)):
+        v1, g1 = res[ref]
+        e = float(np.max(np.abs(v0 / v1 - 1)))
+        signs = all((np.sign(g0[k][c][big]) == np.sign(g1[k][c][big])).all()
+                    for k in g1 for c in range(8)
+                    for big in [np.abs(g1[k][c]) > 1e-3 * np.abs(g1[k][c]).max()])
+        log(f"  log-density of 8 chains, card f32 vs {ref}: max rel {e:.2e} (tol {tol:.0e}), "
+            f"gradient signs agree: {signs}")
+        if not (e < tol and signs):
+            raise AssertionError(f"HMC log-density: card vs {ref}")
+
+
+def phase_standard(torch, ft):
+    """StandardGP on the card: n = 2^13, d = 8, float64 (fit, requests, peak
+    memory), the same in float32 (printed against float64), a
+    derivative-informed model (d = 3, 4 tasks at 2^9) and a model on Halton
+    points (2^12)."""
+    sync = torch.cuda.synchronize
+    xq = np.random.default_rng(13).uniform(size=(4096, D))
+    out = {}
+
+    def std_model(n, dtype, device=None, d=D):
+        gp = ft.StandardGP(d, seed_for_seq=7, dtype=dtype, device=device)
+        gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(n))))
+        return gp
+
+    def serve(gp, label):
+        times, res = {}, {}
+        for name, call in (("post_mean_var", lambda: gp.post_mean_var(xq)),
+                           ("post_cubature_mean", gp.post_cubature_mean),
+                           ("post_cubature_var", gp.post_cubature_var),
+                           ("post_ci", lambda: gp.post_ci(xq[:256]))):
+            t0 = time.perf_counter()
+            res[name] = call()
+            sync()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            _finite(torch, f"{label} {name}", res[name])
+        return times, res
+
+    for dt in (torch.float64, torch.float32):
+        label = f"StandardGP(8) n=2^13 {str(dt)[6:]}"
+        gp = std_model(N_STD, dt)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fit = gp.fit(iterations=20, verbose=0, store_loss_hist=True)
+        sync()
+        fit_s = time.perf_counter() - t0
+        times, res = serve(gp, label)
+        step = step_profile(torch, gp, 1, steps=4)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        spd = float(gp._solver().spd_factor)
+        out[str(dt)[6:]] = dict(fit_s=fit_s, step=step, serve_ms=times, peak_gib=peak,
+                                spd_factor=spd, loss=[float(v) for v in fit["loss_hist"][[0, -1]]])
+        log(f"  {label}: fit(iterations=20) {fit_s:.2f} s, loss {fit['loss_hist'][0]:.6e} -> "
+            f"{fit['loss_hist'][-1]:.6e}; step {step['step_ms']:.2f} ms (device "
+            f"{step['device_ms']:.2f} ms, {100 * step['busy']:.1f}% busy, {step['launches']:.0f} "
+            f"launches); "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+            + f"; peak {peak:.2f} GiB; spd_factor {spd:g}")
+        for ms, c, name in step["top"][:3]:
+            log(f"    {ms:9.4f} ms  x{c:<5.1f} {name}")
+        if not np.isfinite(fit["loss_hist"]).all():
+            raise AssertionError(f"{label}: non-finite loss")
+        if dt == torch.float64:
+            ref = {k: (v[0] if isinstance(v, tuple) else v).double().cpu() for k, v in res.items()}
+        else:
+            got = {k: (v[0] if isinstance(v, tuple) else v).double().cpu() for k, v in res.items()}
+            log("  float32 against float64 (printed, not held; the 64 eps trace floor and the "
+                "nugget doubling decide float32 at this n): "
+                + ", ".join(f"{k} {rel_err(got[k], ref[k])[0]:.2e}" for k in ref))
+        del gp
+        torch.cuda.empty_cache()
+    # derivative-informed: (f, grad f) as 4 tasks, d = 3
+    d3 = 3
+    derivs = [np.zeros((1, d3), dtype=np.int64)] + [e[None, :] for e in np.eye(d3, dtype=np.int64)]
+    gp = ft.StandardGP(d3, num_tasks=d3 + 1, seed_for_seq=7, derivatives=derivs)
+    xs3 = gp.get_x_next_host([1 << 9] * (d3 + 1), task=list(range(d3 + 1)))
+    gp.add_y_next([torch.as_tensor(y) for y in _deriv_y(xs3)], task=list(range(d3 + 1)))
+    t0 = time.perf_counter()
+    pm = gp.post_mean(xq[:256, :d3], task=list(range(d3 + 1)))
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    _finite(torch, "derivative-informed StandardGP", pm)
+    f0 = torch.sin(2 * torch.pi * torch.as_tensor(xq[:256, 0]))
+    err = float((pm[0].double().cpu() - f0).abs().max())
+    log(f"  StandardGP(3) derivative-informed, 4 tasks at 2^9, {gp.dtype}: post_mean of 256 points "
+        f"{ms:.1f} ms, max |mean - sin(2 pi x0)| {err:.2e}, spd_factor "
+        f"{float(gp._solver().spd_factor):g}")
+    out["deriv"] = dict(post_mean_ms=ms, err=err)
+    gp = ft.StandardGP(ft.Halton(D, seed=7))
+    gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(1 << 12))))
+    t0 = time.perf_counter()
+    pm, pv = gp.post_mean_var(xq[:1024])
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    _finite(torch, "Halton StandardGP", (pm, pv))
+    log(f"  StandardGP(Halton(8, seed=7)) n=2^12, {gp.dtype}: post_mean_var of 1024 points "
+        f"{ms:.1f} ms")
+    out["halton"] = dict(post_mean_var_ms=ms)
+    return out
+
+
+def standard_crosscheck(torch, ft):
+    """StandardGP's float64 on the card against the CPU's at n = 2^10, d = 8,
+    noise 1e-2 (``fit(iterations=20)``'s losses, ``post_mean_var`` of 64
+    points and the cubature mean and variance): 1e-9 relative to each
+    quantity's largest, variances to the prior variance they are subtracted
+    from.  The two LAPACKs' Cholesky factors differ by ulps, which the
+    Gram's condition number kappa amplifies to ~eps kappa: at the default
+    noise (1e-4, kappa ~1e7) the variances were 1.26e-9 apart on an H100,
+    at 1e-2 kappa is ~100 times smaller."""
+    xs = np.random.default_rng(13).uniform(size=(64, D))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        gp = ft.StandardGP(D, seed_for_seq=7, dtype=torch.float64, device=dev, noise=1e-2)
+        gp.add_y_next(torch.as_tensor(_f(gp.get_x_next_host(1 << 10))))
+        fit = gp.fit(iterations=20, verbose=0, store_loss_hist=True)
+        pm, pv = gp.post_mean_var(xs)
+        runs[dev] = dict(loss=torch.as_tensor(fit["loss_hist"]), post_mean=pm.cpu(),
+                         post_var=pv.cpu(), cub_mean=gp.post_cubature_mean().cpu().reshape(1),
+                         cub_var=gp.post_cubature_var().cpu().reshape(1),
+                         prior=float(gp.scale[0]))
+    a, b = runs["cuda"], runs["cpu"]
+    errs = {k: rel_err(a[k], b[k])[0] for k in ("loss", "post_mean", "cub_mean")}
+    errs.update({k: float((a[k] - b[k]).abs().max()) / b["prior"] for k in ("post_var", "cub_var")})
+    log("  StandardGP n=2^10 float64, card vs cpu: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (tol 1e-9)")
+    if not all(v < 1e-9 for v in errs.values()):
+        raise AssertionError("StandardGP: the card's float64 and the CPU's disagree")
+
+
+def phase_examples(torch, tp, tf):
+    """The port's examples on the card at the JAX examples' sizes (their
+    defaults), with the plain kernel versions refused."""
+    import importlib
+    out = {}
+    with refuse_plain(tp, tf):
+        for name in ("simple", "multitask", "batch_multitask", "derivative_informed",
+                     "hyperposterior"):
+            mod = importlib.import_module(f"fastgaussianprocesses_torch.examples.{name}")
+            t0 = time.perf_counter()
+            if mod.main() is not True:
+                raise AssertionError(f"example {name} failed")
+            torch.cuda.synchronize()
+            out[name] = time.perf_counter() - t0
+            log(f"  example {name}: {out[name]:.2f} s")
+    return out
+
+
+def host_points():
+    """Host point generation at the main path's size (d = 8, n = 2^20): the
+    lattice from the g++ library and from its numpy path (bit for bit equal),
+    the digital net's numpy doubling (it has no library path); best of 3."""
+    from fastgaussianprocesses_torch.points import native
+    from fastgaussianprocesses_torch.points.digital_net import DigitalNetB2
+    from fastgaussianprocesses_torch.points.lattice import LatticeSeq
+
+    def best_ms(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return min(ts), out
+
+    if native.load() is None:
+        raise AssertionError("the host lattice library did not build")
+    seq = LatticeSeq(D, seed=7)
+    lib_ms, a = best_ms(lambda: seq(0, N_MAIN))
+    np_ms, b = best_ms(lambda: seq.numpy_points(0, N_MAIN))
+    if not np.array_equal(a, b):
+        raise AssertionError("the host lattice library and numpy disagree")
+    dn_ms, _ = best_ms(lambda: DigitalNetB2(D, seed=7)(0, N_MAIN))
+    out = {"lattice_library_ms": lib_ms, "lattice_numpy_ms": np_ms,
+           "digital_net_numpy_ms": dn_ms}
+    log(f"  host points d={D} n=2^20: lattice library {lib_ms:.1f} ms, numpy {np_ms:.1f} ms "
+        f"(equal); digital net numpy doubling {dn_ms:.1f} ms")
+    return out
+
+
+def phase7(torch, ft, tp, tf):
+    """Phase 7 (see the module docstring); returns the cells' results."""
+    res = {}
+    log("  hmc_lattice: bench.py:bench_hmc, FastGPLattice(d=4) n=2^14 float32, fit(iterations=30), "
+        "8 chains, 300 warmup, 50 samples")
+    gp = fit_model(torch, ft.FastGPLattice, N_HMC, d=D_HMC, dtype=torch.float32)
+    with refuse_plain(tp, tf):
+        gp.fit(iterations=30, verbose=0)
+    if type(gp._solver()).__name__ != "_PermSpectrumSolver":
+        raise AssertionError("hmc_lattice did not take the permuted path")
+    res["hmc_lattice"] = phase_hmc(torch, tp, tf, "hmc_lattice", gp, "lattice",
+                                   dict(num_samples=50, num_warmup=300, num_chains=C_HMC, seed=0))
+    log("  hmc_flagship: FastGPLattice(d=8) n=2^20 float32, 8 chains, 20 warmup, 20 samples, "
+        "max_leapfrog 32")
+    gp = fit_model(torch, ft.FastGPLattice, N_MAIN, d=D, dtype=torch.float32)
+    res["hmc_flagship"] = phase_hmc(torch, tp, tf, "hmc_flagship", gp, "lattice",
+                                    dict(num_samples=20, num_warmup=20, num_chains=C_HMC, seed=0,
+                                         max_leapfrog=32))
+    del gp
+    torch.cuda.empty_cache()
+    log("  hmc_dnb2: FastGPDigitalNetB2(d=4) n=2^14 float32, 8 chains, 50 warmup, 50 samples")
+    gp = fit_model(torch, ft.FastGPDigitalNetB2, N_HMC, d=D_HMC, dtype=torch.float32)
+    res["hmc_dnb2"] = phase_hmc(torch, tp, tf, "hmc_dnb2", gp, "dnb2",
+                                dict(num_samples=50, num_warmup=50, num_chains=C_HMC, seed=0))
+    log("  standard")
+    res["standard"] = phase_standard(torch, ft)
+    log("  examples")
+    res["examples"] = phase_examples(torch, tp, tf)
+    res["host_points"] = host_points()
+    log("  cross-checks")
+    hmc_crosscheck(torch, ft, tp, tf)
+    standard_crosscheck(torch, ft)
+    return res
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1509,6 +1920,11 @@ def main(argv):
     cuda_lib.build()
     log(f"  nvcc build of {', '.join(s.name for s in cuda_lib.SOURCES)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    from fastgaussianprocesses_torch.points import native
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the host lattice library (g++) did not build")
+    log(f"  g++ build of {native.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
     counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
                               ("pfft", "pifft_real", "quad"), ("pass_a_kernel", "slab_kernel"))
@@ -1520,8 +1936,11 @@ def main(argv):
     log("phase 3: kernels against their plain versions")
     # and at phase 6's shapes: fleet_lattice's eigenvalues (K1, K2 its backward) and
     # query chunk (K3 a member); mt_dnb2's shorter tasks' eigenvalues and query rows (K4)
-    rows = phase_kernels(torch, tp, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET)])
-    rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT)])
+    # and phase 7's: every HMC chain a row of K1/K2 (n = 2^14 and 2^20) or K4 (2^14)
+    rows = phase_kernels(torch, tp, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET),
+                                           (N_HMC, C_HMC), (N_MAIN, C_HMC)])
+    rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT),
+                                                      (N_HMC, C_HMC)])
     log("phase 4: cross-check at n=2^16, d=8")
     # card f32 against CPU f32 runs the same arithmetic but for the kernels'
     # summation order (measured on the H100: lattice at most 6.4e-6; digital
@@ -1560,6 +1979,13 @@ def main(argv):
     mt = phase_multitask(torch, ft, tp, tf)
     log(f"  phase 6: {time.perf_counter() - t6:.1f} s")
     print(json.dumps({"multitask": mt}))
+
+    log("phase 7: the HMC hyperposterior, StandardGP and the examples on the card (the plain "
+        "kernel versions refused)")
+    t7 = time.perf_counter()
+    p7 = phase7(torch, ft, tp, tf)
+    log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+    print(json.dumps({"hmc_standard_examples": p7}))
 
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
     spec = [("K1 perm_fft.pfft", "K1", 1, "pfft", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
@@ -1612,7 +2038,22 @@ def main(argv):
              mt["fleet_lattice"]["fits"][0]["launches"]["pifft_real"]),
             ("K3 perm_fft.quad_partials (fleet_lattice serving, a member)", src,
              "pallas_fft.py:419", rows[("K3", N_FLEET, NB_FLEET)], f"n=2^16, R={NB_FLEET}",
-             mt["fleet_lattice"]["serve_launches"]["quad"])):
+             mt["fleet_lattice"]["serve_launches"]["quad"]),
+            ("K1 perm_fft.pfft (hmc_lattice, 8 chains' eigenvalues)", src, "pallas_fft.py:129",
+             rows[("K1", N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
+             p7["hmc_lattice"]["launches"]["pfft"]),
+            ("K2 as pfft's backward (hmc_lattice, 8 chains)", src, "pallas_fft.py:268",
+             rows[("K2", N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
+             p7["hmc_lattice"]["launches"]["pifft_real"]),
+            ("K1 perm_fft.pfft (hmc_flagship, 8 chains' eigenvalues)", src, "pallas_fft.py:129",
+             rows[("K1", N_MAIN, C_HMC)], f"n=2^20, R={C_HMC}",
+             p7["hmc_flagship"]["launches"]["pfft"]),
+            ("K2 as pfft's backward (hmc_flagship, 8 chains)", src, "pallas_fft.py:268",
+             rows[("K2", N_MAIN, C_HMC)], f"n=2^20, R={C_HMC}",
+             p7["hmc_flagship"]["launches"]["pifft_real"]),
+            ("K4 fwht.fwht (hmc_dnb2, 8 chains' eigenvalues and backward)", fwsrc,
+             "pallas_fwht.py:59", rows_fwht[(N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
+             p7["hmc_dnb2"]["launches"]["fwht"])):
         kernels.append({"name": name, "route": "cuda", "source": src_,
                         "replaces": "fastgaussianprocesses_tpu/ops/" + replaces,
                         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -12,7 +12,12 @@ defaults do.  Multitask and fleet shapes carry over as they are (a task
 factor of shape (..., T, r), per-member leading dims); the model options
 that are not parameters, such as ``num_tasks``, ``derivatives``,
 ``shape_batch`` and ``adaptive_nugget``, go to the port's constructor under
-the same names.
+the same names.  The same holds for ``StandardGP`` (whose options
+``kernel_class`` and ``adaptive_nugget`` go to the constructor too).  A
+whole model state (parameters, observations, sequence randomizations)
+moves between the packages as an ``.npz`` file instead:
+``utils/checkpoint.save_state`` / ``load_state``, which read and write the
+JAX package's keys.
 """
 
 import numpy as np

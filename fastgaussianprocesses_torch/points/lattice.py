@@ -7,7 +7,8 @@ first 2^m points form a rank-1 lattice whose shift-invariant Gram matrix is
 circulant under the bit-reversal index map.
 
 The generating vectors are the JAX package's CBC tables, copied into
-``points/data``.  All generation is exact in float64 (vdc(i) has <= 32
+``points/data``.  Points come from the host library ``points/native`` where
+it builds, else from numpy; both are exact in float64 (vdc(i) has <= 32
 mantissa bits and the components are < 2^20), so for the same seed the
 points are bit-identical to the JAX package's.
 """
@@ -16,6 +17,8 @@ import os
 import warnings
 
 import numpy as np
+
+from . import native
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 # the SMALLEST sufficient table is preferred (CBC vectors are tuned per n)
@@ -94,6 +97,11 @@ class LatticeSeq:
         """Points with indices in [n_min, n_max), shape (n_max - n_min, d)."""
         if not 0 <= n_min <= n_max <= (1 << self.m_max):
             raise ValueError(f"indices [{n_min}, {n_max}) out of range")
+        out = native.lattice_natural(self.gen_vec, int(n_min), int(n_max), self.shift)
+        return self.numpy_points(n_min, n_max) if out is None else out
+
+    def numpy_points(self, n_min: int, n_max: int) -> np.ndarray:
+        """The numpy path of :meth:`__call__` (the host library's fallback)."""
         idx = np.arange(n_min, n_max, dtype=np.uint64)
         base = van_der_corput(idx)[:, None] * self.gen_vec[None, :].astype(np.float64)
         return (base + self.shift[None, :]) % 1.0
