@@ -142,9 +142,49 @@ Phases; any failure raises and the exit code is not 0:
      on the card against the CPU's at n = 2^10, noise 1e-2 (1e-9).
 
    One ``{"hmc_standard_examples": ...}`` line.
-8. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
-   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's and
-   phase 7's roles) and, last, ``{"ok": true, "device": {...}}``.
+8. The parallel layer (``fastgaussianprocesses_torch/parallel``) in one NCCL
+   process group of world size 1, made in this process over a ``FileStore``,
+   the plain versions of K1, K2 and K4 made to raise
+   (``parallel/smoke.body``, whose docstring lists each check):
+   ``make_sharded_fit_step`` on ``fleet_lattice``'s configuration and the
+   same fleet on ``FastGPDigitalNetB2`` (n = 2^16, 8 members): the launch
+   counters show K1 and K2 (or K4 twice) every step, on 8 rows; loss
+   (rtol 1e-6) and raw parameters (atol 1e-6) equal the model's unsharded
+   step; the step timed as ``bench.py:bench_fit_steps`` times it (chains of
+   16, best of 3) and profiled.  ``use_sequence_sharding`` on the digital
+   net flagship (n = 2^20): its MLL (rtol 1e-4) and gradient (1e-3 of the
+   largest) equal the unsharded ones, K4 launched.  A chain-sharded
+   ``hmc_lattice`` run (20 + 20 iterations) equals the unsharded run on the
+   same seed (1e-5), one K1 and one K2 a gradient on 8 rows.  ``measure_collective_overhead`` at k = 1.  One
+   ``{"parallel_one_card": ...}`` line.
+9. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
+   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's,
+   phase 7's and phase 8's roles) and, last, ``{"ok": true, "device":
+   {...}}``.
+
+``python3 chip_smoke.py --multichip``, on a host with four cards, builds
+the kernels and the host library in this process, then spawns one NCCL
+rank a card
+(``parallel/dryrun.SpawnedRanks``: a ``FileStore`` rendezvous, every
+collective timed out after 900 s, the ranks killed after 1000 s), each
+running ``parallel/smoke.body`` with the whole set: the fleet step against
+the one-card step; the sequence-sharded MLL, GCV and CV loss and gradient
+of both flagship models at n = 2^20 in float32 against the one-card
+float32 values (rtol 1e-4 on the loss, 1e-3 of the largest gradient) and
+at n = 2^16 in float64 against one card's float64 (1e-10, 1e-8); the
+sharded transforms at n = 2^20 against one card's (1e-5 of the largest
+output); the peak memory of a rank's MLL step at n = 2^20 and 2^22 beside
+one card's; chain-sharded HMC of ``hmc_lattice`` and ``hmc_flagship`` (each
+gradient K1 + K2 on 2 rows a rank, every log-density finite, the first 4
+iterations against the one-card sampler on the same row blocks at 1e-5,
+the whole run's acceptance within 0.25 and step size within 2x of the
+one-card run's); ``measure_hmc_scaling`` and
+``measure_collective_overhead`` at k = 1 and 4; ``dryrun_multichip(4)``.
+Then, on card 0, K1-K4 at the shapes a rank runs, through phase 3's own
+checks and timings (``phase_kernels`` / ``phase_fwht`` with ``base=False``).  It prints one
+``{"parallel": ...}`` line, the ``nvidia-smi`` line, a ``{"kernels":
+[...]}`` line of those roles with the four-card launches and, last,
+``{"ok": true, "device": {...}}`` with the count of cards used.
 
 ``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
 does (public API only), for the package in DIR (default: this checkout),
@@ -308,14 +348,16 @@ def check_k12(torch, tp, g):
         torch.cuda.empty_cache()
 
 
-def phase_kernels(torch, tp, extra=()):
+def phase_kernels(torch, tp, extra=(), base=True):
     """Phase 3: every kernel against its plain version; times and bounds, at
-    the serving path's shapes and the ``extra`` (n, R) of phase 6."""
+    the serving path's shapes and the ``extra`` (n, R) of phases 6-8.  With
+    ``base=False`` (``--multichip``), the ``extra`` shapes alone."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    check_k12(torch, tp, g)
+    if base:
+        check_k12(torch, tp, g)
     rows = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)] + list(extra):
+    for n, R in ([(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)] if base else []) + list(extra):
         A, Bh, Bl, _ = tp._plan(n)
         x = torch.randn(R, n, generator=g).to(dev) + 2.0
         mx = x.mean(-1)
@@ -576,7 +618,12 @@ def np_fwht(x):
     return y * x.dtype.type(1.0 / math.sqrt(n))
 
 
-def fwht_times(torch, tf, ttr, nb, g, extra=()):
+def fwht_shapes(nb, extra, base):
+    """K4's (n, R) in phase 3: the digital-net path's, then ``extra``."""
+    return ([(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)] if base else []) + list(extra)
+
+
+def fwht_times(torch, tf, ttr, nb, g, extra=(), base=True):
     """K4's times at the digital-net path's shapes and n = 2^14, R = 3, each a
     CUDA graph of repeated calls between events: ``warm`` calls on one input
     (in L2 when it fits), ``cold`` calls cycling through inputs larger than
@@ -584,7 +631,7 @@ def fwht_times(torch, tf, ttr, nb, g, extra=()):
     ``ft_stable_fwht``.  Only the public API, so that it times an older
     checkout of the package as well (``--fwht-times``)."""
     out = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)] + list(extra):
+    for n, R in fwht_shapes(nb, extra, base):
         key = f"2^{int(math.log2(n))},{R}"
         x = torch.randn(R, n, generator=g).to("cuda")
         it = 50 if R == 1 else 10
@@ -606,15 +653,16 @@ def fwht_times(torch, tf, ttr, nb, g, extra=()):
     return out
 
 
-def phase_fwht(torch, tf, ttr, nb, extra=()):
+def phase_fwht(torch, tf, ttr, nb, extra=(), base=True):
     """Phase 3 for K4: against its plain version, float64 numpy and the
     float32 numpy butterflies (also centring on load); times, bounds, the
     group-size sweep and the HBM rate.  ``nb``: the query chunk's row count
-    on the digital-net path; ``extra``: the (n, R) of phase 6."""
+    on the digital-net path; ``extra``: the (n, R) of phases 6-8.  With
+    ``base=False`` (``--multichip``), the ``extra`` shapes alone, no sweep."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     rows = {}
-    for n, R in [(1 << 14, 3), (N_MAIN, 1), (N_MAIN, nb), (1 << 22, 1)] + list(extra):
+    for n, R in fwht_shapes(nb, extra, base):
         m = int(math.log2(n))
         x = torch.randn(R, n, generator=g).to(dev) + 1.5
         k = tf.fwht(x)
@@ -646,7 +694,7 @@ def phase_fwht(torch, tf, ttr, nb, extra=()):
                             plain_ms=gtime(lambda: tf.fwht_plain(x), 10 if R == 1 else 3))
         del x, k, p, km
         torch.cuda.empty_cache()
-    times = fwht_times(torch, tf, ttr, nb, g, extra)
+    times = fwht_times(torch, tf, ttr, nb, g, extra, base)
     for (n, R), r in rows.items():
         m = int(math.log2(n))
         t = times[f"2^{m},{R}"]
@@ -659,6 +707,8 @@ def phase_fwht(torch, tf, ttr, nb, extra=()):
             f"{r['plain_ms']:.4f} ms, library none; bound {bms:.4f} ms by {by} "
             f"({nbytes_ / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); the function's bytes at "
             f"{nbytes_ / t['warm'] / 1e9:.3f} TB/s")
+    if not base:
+        return rows
     # the pass-1 output of a group of rows that pass 2 reads back from L2
     x = torch.randn(nb, N_MAIN, generator=g).to(dev)
     sweep = {}
@@ -1895,6 +1945,107 @@ def phase7(torch, ft, tp, tf):
     return res
 
 
+# ---- phase 8 and --multichip: the parallel layer ----------------------------------------
+
+PARALLEL_ONE = dict(full=False, n_fleet=N_FLEET, n_seq=N_MAIN, n_hmc=N_HMC,
+                    hmc_lattice=dict(num_samples=20, num_warmup=20, num_chains=C_HMC, seed=0))
+PARALLEL_FULL = dict(full=True, n_fleet=N_FLEET, n_seq=N_MAIN, n_seq64=N_FLEET,
+                     n_mem=(N_MAIN, 1 << 22), n_hmc=N_HMC, n_flag=N_MAIN,
+                     hmc_lattice=dict(num_samples=50, num_warmup=300, num_chains=C_HMC, seed=0),
+                     hmc_flagship=dict(num_samples=20, num_warmup=20, num_chains=C_HMC, seed=0,
+                                       max_leapfrog=32))
+
+
+def phase_parallel(torch):
+    """Phase 8: ``parallel/smoke.body`` in a process group of one (NCCL over a
+    ``FileStore`` in a temporary directory), destroyed after."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from fastgaussianprocesses_torch.parallel import smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+                                device_id=torch.device("cuda", 0))
+        try:
+            return smoke.body(0, 1, dict(PARALLEL_ONE, dtype=torch.float32))
+        finally:
+            dist.destroy_process_group()
+
+
+def multichip(torch):
+    """``--multichip``: build here, then ``parallel/smoke.body`` on one NCCL
+    rank a card, then the ranks' kernel shapes on card 0."""
+    from fastgaussianprocesses_torch.ops import cuda_lib, fwht as tf, perm_fft as tp
+    from fastgaussianprocesses_torch.ops import transforms as ttr
+    from fastgaussianprocesses_torch.parallel import dryrun, smoke
+    from fastgaussianprocesses_torch.points import native
+
+    cards = torch.cuda.device_count()
+    smi = smi_line()
+    log(f"card: {smi}; {cards} cards; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if cards < 2:
+        raise AssertionError(f"--multichip needs several cards, found {cards}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    if native.load() is None:
+        raise AssertionError("the host lattice library (g++) did not build")
+    log(f"  builds (nvcc, g++) in the parent: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 on {cards} cards: one NCCL rank a card")
+    t0 = time.perf_counter()
+    res = dryrun.run_ranks(smoke.body, cards, dict(PARALLEL_FULL, dtype=torch.float32),
+                           backend="nccl", timeout=1000.0, collective_timeout=900.0)
+    log(f"  ranks: {time.perf_counter() - t0:.1f} s")
+    out = res[0]
+    print(json.dumps({"parallel": out}, default=str))
+    per = C_HMC // cards
+    fleet_rows = B_FLEET // cards
+    log("K1-K4 at a rank's shapes, on card 0, as phase 3 holds and times them")
+    rows = phase_kernels(torch, tp, extra=[(N_FLEET, fleet_rows), (N_HMC, per), (N_MAIN, per)],
+                         base=False)
+    rows.update({("K4",) + k: v for k, v in phase_fwht(
+        torch, tf, ttr, NB_DIGITAL, extra=[(N_FLEET, fleet_rows), (N_MAIN // cards, 1)],
+        base=False).items()})
+    src, fwsrc = ("fastgaussianprocesses_torch/csrc/perm_fft.cu",
+                  "fastgaussianprocesses_torch/csrc/fwht.cu")
+    rep = {"K1": "pallas_fft.py:129", "K2": "pallas_fft.py:268", "K4": "pallas_fwht.py:59"}
+    fl, fd = out["fleet"]["lattice"]["launches_a_step"], out["fleet"]["dnb2"]["launches_a_step"]
+    sd = out["seq"]["dnb2"]["MLL"]["launches"]
+    hl = out["hmc"]["hmc_lattice"]["launches"]
+    hf = out["hmc"]["hmc_flagship"]["launches"]
+    roles = [("K1 perm_fft.pfft (sharded fleet step, lattice, a rank's members)",
+              ("K1", N_FLEET, fleet_rows), fl["pfft"]),
+             ("K2 as pfft's backward (sharded fleet step, lattice)",
+              ("K2", N_FLEET, fleet_rows), fl["pifft_real"]),
+             ("K4 fwht.fwht (sharded fleet step, digital net, eigenvalues and backward)",
+              ("K4", N_FLEET, fleet_rows), fd["fwht"]),
+             ("K4 fwht.fwht (sequence-sharded digital net, a rank's block; MLL and gradient)",
+              ("K4", N_MAIN // cards, 1), sd["fwht"]),
+             ("K1 perm_fft.pfft (chain-sharded hmc_lattice, a rank's chains; the timed run)",
+              ("K1", N_HMC, per), hl["pfft"]),
+             ("K2 as pfft's backward (chain-sharded hmc_lattice; the timed run)",
+              ("K2", N_HMC, per), hl["pifft_real"]),
+             ("K1 perm_fft.pfft (chain-sharded hmc_flagship, a rank's chains; the timed run)",
+              ("K1", N_MAIN, per), hf["pfft"]),
+             ("K2 as pfft's backward (chain-sharded hmc_flagship; the timed run)",
+              ("K2", N_MAIN, per), hf["pifft_real"])]
+    kernels = []
+    for name, key, launches in roles:
+        r = rows[key]
+        kernels.append({"name": name, "route": "cuda", "source": fwsrc if key[0] == "K4" else src,
+                        "replaces": "fastgaussianprocesses_tpu/ops/" + rep[key[0]],
+                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                        "shape": f"n=2^{int(math.log2(key[1]))}, R={key[2]}"})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": cards}}))
+    return 0
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1909,6 +2060,8 @@ def main(argv):
         times = fwht_times(torch, tf, ttr, NB_DIGITAL, torch.Generator().manual_seed(1))
         print(json.dumps({"fwht_times": times}))
         return 0
+    if argv[:1] == ["--multichip"]:
+        return multichip(torch)
     import fastgaussianprocesses_torch as ft
     from fastgaussianprocesses_torch.ops import cuda_lib, fwht as tf, perm_fft as tp
     from fastgaussianprocesses_torch.ops import transforms as ttr
@@ -1940,7 +2093,7 @@ def main(argv):
     rows = phase_kernels(torch, tp, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET),
                                            (N_HMC, C_HMC), (N_MAIN, C_HMC)])
     rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT),
-                                                      (N_HMC, C_HMC)])
+                                                      (N_HMC, C_HMC), (N_FLEET, B_FLEET)])
     log("phase 4: cross-check at n=2^16, d=8")
     # card f32 against CPU f32 runs the same arithmetic but for the kernels'
     # summation order (measured on the H100: lattice at most 6.4e-6; digital
@@ -1986,6 +2139,13 @@ def main(argv):
     p7 = phase7(torch, ft, tp, tf)
     log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
     print(json.dumps({"hmc_standard_examples": p7}))
+
+    log("phase 8: the parallel layer in a process group of one (NCCL; the plain kernel "
+        "versions refused)")
+    t8 = time.perf_counter()
+    p8 = phase_parallel(torch)
+    log(f"  phase 8: {time.perf_counter() - t8:.1f} s")
+    print(json.dumps({"parallel_one_card": p8}, default=str))
 
     src = "fastgaussianprocesses_torch/csrc/perm_fft.cu"
     spec = [("K1 perm_fft.pfft", "K1", 1, "pfft", "fastgaussianprocesses_tpu/ops/pallas_fft.py:129"),
@@ -2053,7 +2213,25 @@ def main(argv):
              p7["hmc_flagship"]["launches"]["pifft_real"]),
             ("K4 fwht.fwht (hmc_dnb2, 8 chains' eigenvalues and backward)", fwsrc,
              "pallas_fwht.py:59", rows_fwht[(N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
-             p7["hmc_dnb2"]["launches"]["fwht"])):
+             p7["hmc_dnb2"]["launches"]["fwht"]),
+            ("K1 perm_fft.pfft (phase 8: sharded fleet step, lattice, one rank)", src,
+             "pallas_fft.py:129", rows[("K1", N_FLEET, B_FLEET)], f"n=2^16, R={B_FLEET}",
+             p8["fleet"]["lattice"]["launches_a_step"]["pfft"]),
+            ("K2 as pfft's backward (phase 8: sharded fleet step, lattice)", src,
+             "pallas_fft.py:268", rows[("K2", N_FLEET, B_FLEET)], f"n=2^16, R={B_FLEET}",
+             p8["fleet"]["lattice"]["launches_a_step"]["pifft_real"]),
+            ("K4 fwht.fwht (phase 8: sharded fleet step, digital net)", fwsrc,
+             "pallas_fwht.py:59", rows_fwht[(N_FLEET, B_FLEET)], f"n=2^16, R={B_FLEET}",
+             p8["fleet"]["dnb2"]["launches_a_step"]["fwht"]),
+            ("K4 fwht.fwht (phase 8: sequence-sharded digital net, one rank's block)", fwsrc,
+             "pallas_fwht.py:59", rows_fwht[(N_MAIN, 1)], "n=2^20, R=1",
+             p8["seq"]["dnb2"]["MLL"]["launches"]["fwht"]),
+            ("K1 perm_fft.pfft (phase 8: chain-sharded hmc_lattice, 20 + 20 iterations)", src,
+             "pallas_fft.py:129", rows[("K1", N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
+             p8["hmc"]["hmc_lattice"]["launches"]["pfft"]),
+            ("K2 as pfft's backward (phase 8: chain-sharded hmc_lattice, 20 + 20 iterations)",
+             src, "pallas_fft.py:268", rows[("K2", N_HMC, C_HMC)], f"n=2^14, R={C_HMC}",
+             p8["hmc"]["hmc_lattice"]["launches"]["pifft_real"])):
         kernels.append({"name": name, "route": "cuda", "source": src_,
                         "replaces": "fastgaussianprocesses_tpu/ops/" + replaces,
                         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -22,6 +22,13 @@ What differs, by design:
   resumed run continues bit for bit.  The JAX package's threefry stream
   cannot be reproduced; ``hmc``'s private ``_draw_fn`` replaces the draws
   (the tests feed it the JAX key schedule's).
+* **Chains over devices** (``chain_sharding``): each rank of the mesh
+  axis runs ``C / D`` of the chains, drawing the global random numbers and
+  taking its own rows; the cross-chain reductions gather every chain's
+  inputs (one ``all_gather`` an iteration, two with ChEES) and reduce them
+  in the unsharded order, so that a sharded run reproduces the unsharded run
+  on the same seed bit for bit where the log-density is row-independent;
+  every rank returns the whole result.
 * **The leapfrog count is fetched** once an iteration (ChEES's
   ``clip(ceil(t / eps), 1, Lmax)`` is data-dependent), and each leapfrog
   step evaluates the gradient once: the JAX body's first evaluation repeats
@@ -35,6 +42,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel import comm
 
 
 class HMCResult(NamedTuple):
@@ -129,11 +138,29 @@ def hmc(logprob_fn: Callable, init_params, key,
     same ``key`` continues bit for bit on the same device (the draws are
     functions of the global step).  The carry is the JAX package's ten
     entries, so a token moves between the packages (``utils/checkpoint``).
-    ``chain_sharding`` (chains over devices) raises ``NotImplementedError``
-    until the multi-device slice is ported.
+
+    ``chain_sharding``: ``parallel.mesh.batch_sharding(mesh, "chains")`` to
+    split the chains over that mesh axis, ``C / D`` a rank (every rank of
+    the axis calls ``hmc`` with the same arguments).  A gradient is then one
+    evaluation of ``logprob_fn`` on the rank's rows; the cross-chain means
+    (ChEES's centre and criterion, dual averaging's acceptance, the mass
+    moments, the acceptance rate) are taken over every chain's gathered
+    rows; the samples, log-densities and the carry's positions are
+    gathered, so every rank returns the whole result and a resume token of
+    any layout.
     """
-    if chain_sharding is not None:
-        raise NotImplementedError("chain_sharding needs the multi-device slice, not ported yet")
+    from ..parallel.mesh import Sharding
+
+    if chain_sharding is not None and not isinstance(chain_sharding, Sharding):
+        raise TypeError("chain_sharding must be a parallel.mesh.Sharding "
+                        f"(batch_sharding(mesh, 'chains')), got {type(chain_sharding).__name__}")
+    group = None if chain_sharding is None else chain_sharding.group
+    D = 1 if group is None else chain_sharding.size
+    if num_chains % D:
+        raise ValueError(f"{num_chains} chains do not split over {D} ranks")
+    C = num_chains // D
+    r0 = 0 if group is None else chain_sharding.rank * C
+    rows = slice(r0, r0 + C)
     if mass_matrix not in ("diag", "dense"):
         raise ValueError(f"mass_matrix must be 'diag' or 'dense', got {mass_matrix!r}")
     if trajectory_adapt not in ("fixed", "chees"):
@@ -150,6 +177,27 @@ def hmc(logprob_fn: Callable, init_params, key,
     if _draw_fn is None:
         def _draw_fn(t):
             return _draws(key, t, num_chains, dim, dtype, traj)
+
+    def draws(t):
+        # every rank draws the global numbers and keeps its chains' rows
+        dr = _draw_fn(t)
+        return {k: v[rows] if k in ("init", "z", "accept_u") else v for k, v in dr.items()}
+
+    def every_chain(*xs):
+        """Each x (leading chain axis) over all C chains: under chain sharding
+        one all_gather for all of them, so that every cross-chain reduction
+        runs on the same rows in the same order as the unsharded sampler's
+        (an all-reduce of partial sums would round differently, and dual
+        averaging amplifies every difference)."""
+        if group is None:
+            return xs
+        flat = [x.reshape(x.shape[0], -1).to(dtype) for x in xs]
+        every = comm.all_gather_cat(torch.cat(flat, -1), group, 0)
+        out, off = [], 0
+        for x, f in zip(xs, flat):
+            out.append(every[:, off:off + f.shape[1]].reshape((num_chains,) + x.shape[1:]))
+            off += f.shape[1]
+        return out
 
     def dev(x):
         # a step's draws go to the card from pinned memory without a stream sync
@@ -208,7 +256,7 @@ def hmc(logprob_fn: Callable, init_params, key,
     def step(carry, lp0, g0, t_i, tw, adapting, mass_adapting):
         (q, log_eps, h_bar, log_eps_bar, mass_mean, mass_sq, count,
          log_T, rms_v, _) = carry
-        dr = _draw_fn(t_i)
+        dr = draws(t_i)
         inv_mass = estimate_inv_mass(mass_mean, mass_sq, count)
         eps = torch.exp(log_eps)
         p = sample_momentum(dev(dr["z"]), inv_mass)
@@ -233,29 +281,34 @@ def hmc(logprob_fn: Callable, init_params, key,
         log_alpha = torch.where(torch.isnan(log_alpha), -math.inf, log_alpha)
         accept = torch.log(dev(dr["accept_u"])) < log_alpha
         if chees:
-            # ChEES criterion gradient wrt log T over the proposed end
-            # states, acceptance-weighted; RMSProp ascent during warmup only
-            qbar = q_new.mean(0)
+            # the ChEES criterion's per-chain terms over the proposed end states
+            qbar = every_chain(q_new)[0].mean(0)
             dq_new = q_new - qbar
             dq_old = q - qbar
             crit = (dq_new ** 2).sum(-1) - (dq_old ** 2).sum(-1)
             vel = apply_inv_mass(inv_mass, p_new)
             g_c = crit * (dq_new * vel).sum(-1)
-            w_a = torch.exp(log_alpha)
-            grad = (w_a * g_c).sum() / torch.clamp(w_a.sum(), min=1e-6) * t_traj
+        acc2 = accept[:, None]
+        q = torch.where(acc2, q_new, q)
+        lp = torch.where(accept, lp1, lp0)
+        g_next = torch.where(acc2, g, g0)
+        # the cross-chain inputs of the adaptation, every chain's
+        log_alpha_c, accept_c, q_c, *g_c = every_chain(log_alpha, accept, q,
+                                                       *([g_c] if chees else []))
+        if chees:
+            # ChEES criterion gradient wrt log T, acceptance-weighted;
+            # RMSProp ascent during warmup only
+            w_a = torch.exp(log_alpha_c)
+            grad = (w_a * g_c[0]).sum() / torch.clamp(w_a.sum(), min=1e-6) * t_traj
             grad = torch.where(torch.isfinite(grad), grad, 0.0)
             if adapting:
                 rms_v = 0.9 * rms_v + 0.1 * grad * grad
                 log_T = log_T + 0.025 * grad / torch.sqrt(rms_v + 1e-10)
             # keep 2T/eps inside [1, Lmax] steps
             log_T = torch.minimum(torch.maximum(log_T, log_eps - log2), log_eps + log_half_lmax)
-        acc2 = accept[:, None]
-        q = torch.where(acc2, q_new, q)
-        lp = torch.where(accept, lp1, lp0)
-        g_next = torch.where(acc2, g, g0)
         # dual averaging on the cross-chain mean acceptance, mu fixed
         if adapting:
-            alpha_mean = torch.exp(log_alpha).mean()
+            alpha_mean = torch.exp(log_alpha_c).mean()
             h_bar = (1 - 1 / (tw + 10.0)) * h_bar + (target_accept - alpha_mean) / (tw + 10.0)
             log_eps_prop = mu - torch.sqrt(tw) / 0.05 * h_bar
             w = tw ** -0.75
@@ -265,13 +318,13 @@ def hmc(logprob_fn: Callable, init_params, key,
             log_eps = log_eps_bar
         # mass moments across chains, doubly windowed in time
         if adapting and mass_adapting:
-            sq_upd = (q[:, :, None] * q[:, None, :]).mean(0) if dense else (q * q).mean(0)
-            mass_mean = mass_decay * mass_mean + q.mean(0)
+            sq_upd = (q_c[:, :, None] * q_c[:, None, :]).mean(0) if dense else (q_c * q_c).mean(0)
+            mass_mean = mass_decay * mass_mean + q_c.mean(0)
             mass_sq = mass_decay * mass_sq + sq_upd
             count = mass_decay * count + 1.0
         new_carry = (q, log_eps, h_bar, log_eps_bar, mass_mean, mass_sq, count,
                      log_T, rms_v, flags[adapting])
-        return new_carry, lp, g_next, accept, n_steps
+        return new_carry, lp, g_next, accept_c.to(dtype).mean(), n_steps
 
     def scalar(v):
         return torch.tensor(v, dtype=dtype, device=device)
@@ -280,7 +333,7 @@ def hmc(logprob_fn: Callable, init_params, key,
 
     if init_state is None:
         start_t = 0
-        q0 = flat0[None, :] + init_jitter * dev(_draw_fn(-1)["init"])
+        q0 = flat0[None, :] + init_jitter * dev(draws(-1)["init"])
         # T0: mean trajectory time eps0 * num_leapfrog
         carry = (q0, scalar(math.log(0.1)), scalar(0.0), scalar(math.log(0.1)),
                  torch.zeros(dim, dtype=dtype, device=device),
@@ -292,6 +345,7 @@ def hmc(logprob_fn: Callable, init_params, key,
         carry, start_t = init_state
         carry = tuple(torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v), device=device)
                       for v in carry)
+        carry = (carry[0][rows],) + carry[1:]
         start_t = int(start_t)
         total = max(0, num_warmup - start_t) + num_samples
     mass_start = int(round(mass_warmup_start_frac * num_warmup))
@@ -300,21 +354,25 @@ def hmc(logprob_fn: Callable, init_params, key,
     lp_cur, g_cur = v_and_g(carry[0])
     qs, lps, accs, nsts = [], [], [], []
     for i, t_i in enumerate(range(start_t, start_t + total)):
-        carry, lp_cur, g_cur, accept, n_steps = step(
+        carry, lp_cur, g_cur, acc_rate, n_steps = step(
             carry, lp_cur, g_cur, t_i, tws[i], t_i < num_warmup, t_i >= mass_start)
         if t_i >= num_warmup:
             qs.append(carry[0])
             lps.append(lp_cur)
-            accs.append(accept.to(dtype).mean())
+            accs.append(acc_rate)
         nsts.append(n_steps)
     mean_leapfrog = float(torch.tensor(nsts, dtype=dtype).mean()) if nsts else math.nan
     # the adapted inverse-mass ESTIMATE; dense mode reports the covariance diagonal
     inv_mass_final = estimate_inv_mass(carry[4], carry[5], carry[6])
     if dense:
         inv_mass_final = torch.diagonal(inv_mass_final)
-    qs = torch.stack(qs) if qs else torch.zeros((0, num_chains, dim), dtype=dtype, device=device)
-    lps = torch.stack(lps) if lps else torch.zeros((0, num_chains), dtype=dtype, device=device)
+    qs = torch.stack(qs) if qs else torch.zeros((0, C, dim), dtype=dtype, device=device)
+    lps = torch.stack(lps) if lps else torch.zeros((0, C), dtype=dtype, device=device)
     acc = torch.stack(accs).mean() if accs else scalar(math.nan)
+    if group is not None:
+        # every rank returns every chain (rank order is chain order)
+        qs, lps = comm.all_gather_cat(qs, group, 1), comm.all_gather_cat(lps, group, 1)
+        carry = (comm.all_gather_cat(carry[0], group, 0),) + carry[1:]
     return HMCResult(samples=_unflatten(qs, spec), log_prob=lps, accept_rate=acc,
                      step_size=torch.exp(carry[3]), mass_diag=_unflatten(inv_mass_final, spec),
                      state=(carry, start_t + total), mean_leapfrog=mean_leapfrog,
@@ -397,6 +455,9 @@ def gp_log_density(model, include=("scale", "lengthscales"), prior_std=3.0):
     taking a dict of ``(C, *shape)`` leaves to ``(C,)``, and the leaves'
     current (unbatched) values.  Every reduction is per chain: the norm term,
     ``d_out / prod(logdet.shape[1:]) * logdet[c].sum()`` and the prior."""
+    if model._seq_mesh is not None:
+        raise NotImplementedError("the GP log-density under a sequence mesh is not ported; "
+                                  "shard the chains instead (chain_sharding)")
     model._warm_for_fit()
     d_out = int(np.prod(model.shape_batch)) if model.shape_batch else 1
     mll_const = d_out * float(model.n.sum()) * math.log(2 * math.pi)

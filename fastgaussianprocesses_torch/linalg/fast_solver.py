@@ -29,6 +29,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import comm
+
 # Coefficient of the dtype-relative eigenvalue floor EIG_FLOOR_C * eps * max|lam|
 # that effective_lams adds (see there).
 EIG_FLOOR_C = 8.0
@@ -46,6 +48,8 @@ class FastFactor(NamedTuple):
     ``n_sorted``: static task sizes, descending.
     ``task_order`` / ``inv_task_order``: permutations between original and
     sorted task indexing.
+    ``group``: the process group over whose ranks the frequency axis is
+    split (each holds its block of ``lam_eff``), or None.
     """
 
     lam_eff: Optional[torch.Tensor]
@@ -54,6 +58,7 @@ class FastFactor(NamedTuple):
     n_sorted: tuple
     task_order: tuple
     inv_task_order: tuple
+    group: object = None
 
 
 def sort_tasks(n: Sequence[int]):
@@ -65,7 +70,7 @@ def sort_tasks(n: Sequence[int]):
 
 
 def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
-                   inv_task_order, adaptive_nugget: bool = False):
+                   inv_task_order, adaptive_nugget: bool = False, group=None):
     """Noise, task-kernel scaling and the eigenvalue floor on the transformed
     first columns.
 
@@ -76,6 +81,9 @@ def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
         kmat_tasks: (..., T, T) task Gram ``F F^T + diag(v)``; noise: (..., 1).
         adaptive_nugget: scale each task's noise by the trace ratio
             ``|tr K_ll / tr K_00|`` (task 0 in the original order).
+        group: the process group whose ranks hold blocks of the frequency
+            axis (one task only), or None; the traces and the floor's max
+            are then taken over the whole axis.
 
     Returns:
         ``{(l0, l1): (..., n_sorted[l0])}`` with ``sqrt(n_sorted[l1]) * lam``,
@@ -99,9 +107,9 @@ def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
             torch.tensor(float(n_sorted[l1]), dtype=rdt, device=lam.device)) * lam
     if adaptive_nugget:
         root = inv_task_order[0]  # sorted position of original task 0
-        tr00 = scaled[(root, root)].sum(-1)
+        tr00 = comm.all_sum(scaled[(root, root)].sum(-1), group)
         for l in range(T):
-            trll = scaled[(l, l)].sum(-1)
+            trll = comm.all_sum(scaled[(l, l)].sum(-1), group)
             scaled[(l, l)] = scaled[(l, l)] + noise * (trll / tr00).abs()[..., None]
     else:
         for l in range(T):
@@ -112,7 +120,8 @@ def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
     for l in range(T):
         lam_ll = out[(l, l)]
         eps = torch.finfo(lam_ll.abs().dtype).eps
-        out[(l, l)] = lam_ll + EIG_FLOOR_C * eps * lam_ll.abs().amax(-1, keepdim=True)
+        top = comm.all_amax(lam_ll.abs().amax(-1, keepdim=True), group)
+        out[(l, l)] = lam_ll + EIG_FLOOR_C * eps * top
     return out
 
 
@@ -176,16 +185,21 @@ def _inv_logdet_schur(theta, m: int):
         logdetA + logdetS
 
 
-def factorize(lams: dict, n_sorted, task_order, inv_task_order) -> FastFactor:
+def factorize(lams: dict, n_sorted, task_order, inv_task_order, group=None) -> FastFactor:
     """Factorize the frequency-space system: the batched inverse of its
     residue blocks and its log-determinant (for one task, the eigenvalues
-    themselves and ``sum log|lam|``)."""
+    themselves and ``sum log|lam|``, summed over ``group``'s blocks)."""
     meta = dict(n_sorted=tuple(n_sorted), task_order=tuple(task_order),
                 inv_task_order=tuple(inv_task_order))
     T = len(n_sorted)
     if T == 1:
         lam = lams[(0, 0)]
-        return FastFactor(lam_eff=lam, inv=None, logdet=torch.log(lam.abs()).sum(-1), **meta)
+        return FastFactor(lam_eff=lam, inv=None, group=group,
+                          logdet=comm.all_sum(torch.log(lam.abs()).sum(-1), group), **meta)
+    if group is not None:
+        raise NotImplementedError(
+            "the multitask solver under a sequence mesh is not ported yet (its residue "
+            "blocks cross the shards; ROADMAP queue 1 item 4a)")
     n_min = int(n_sorted[-1])
     r = [int(nl) // n_min for nl in n_sorted]
     rows = []
@@ -257,7 +271,7 @@ def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
 def trace_inverse(factor: FastFactor):
     """Real trace of the inverse Gram (the GCV denominator)."""
     if factor.lam_eff is not None:
-        return torch.real(1.0 / factor.lam_eff).sum(-1)
+        return comm.all_sum(torch.real(1.0 / factor.lam_eff).sum(-1), factor.group)
     return torch.diagonal(factor.inv, dim1=-2, dim2=-1).real.sum((-1, -2))
 
 
@@ -279,7 +293,11 @@ def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
     """
     if factor.lam_eff is not None:
         lam = factor.lam_eff
-        val = torch.real(1.0 / lam).mean(-1)
+        if factor.group is None:
+            val = torch.real(1.0 / lam).mean(-1)
+        else:
+            val = (comm.all_sum(torch.real(1.0 / lam).sum(-1), factor.group)
+                   / float(factor.n_sorted[0]))
         return [val[..., None].expand(val.shape + (lam.shape[-1],))]
     n_sorted = factor.n_sorted
     n_min = int(n_sorted[-1])

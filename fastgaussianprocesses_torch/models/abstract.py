@@ -15,6 +15,7 @@ import torch
 
 from ..config import default_dtype, resolve_device
 from ..fit.rprop import rprop_init, rprop_update
+from ..parallel import comm
 from .params import IDENTITY, LOG_EXP, make_param
 
 
@@ -47,6 +48,19 @@ def _cat(ts, dim):
 
 class AbstractGP:
     """Base class; concrete models provide sampling, kernels and solvers."""
+
+    # the sequence mesh and its axis (fast models, ``use_sequence_sharding``)
+    _seq_mesh = None
+    _seq_axis = "seq"
+
+    @property
+    def _seq_group(self):
+        """The process group that splits the transform axis n, or None (also
+        for a mesh axis of size 1, which needs no collective)."""
+        if self._seq_mesh is None:
+            return None
+        from ..parallel.mesh import axis_group
+        return axis_group(self._seq_mesh, self._seq_axis)
 
     def __init__(self,
                  seqs,
@@ -748,7 +762,7 @@ class AbstractGP:
         if steps_per_dispatch == -1:
             raise NotImplementedError(
                 "steps_per_dispatch=-1 (the whole fit as one device-side loop) is not "
-                "ported yet (ROADMAP queue 1 item 3); use K >= 1")
+                "ported yet (ROADMAP queue 1 item 4c); use K >= 1")
         K = max(1, int(steps_per_dispatch))
         lr = 1e-1 if lr is None else lr
         logtol = math.log(1 + stop_crit_improvement_threshold)
@@ -884,10 +898,20 @@ class AbstractGP:
         """``loss_and_grad(raw, data) -> (loss, (term1, term2), grads)`` of
         the chosen loss over the raw parameters: the loss and its terms as
         0-d tensors (the terms NaN where the metric has none), ``grads`` one
-        tensor per parameter, zero for those that are not trained."""
+        tensor per parameter, zero for those that are not trained.
+
+        Under a sequence mesh every rank computes the same global loss (the
+        solver's sums over n are differentiable all-reduces, whose backward
+        sums the ranks' gradients): each rank seeds the backward with 1 / D
+        and the gradients, all of replicated parameters, are then summed
+        over the group.  A per-point ``cv_weights`` is cut to the rank's
+        block of points, like the ytildes."""
         trainable = {k: p.trainable for k, p in self.params.items()}
+        group = self._seq_group
         cv_w = torch.as_tensor(np.asarray(cv_weights, dtype=np.float64), dtype=self.dtype,
                                device=self.device)
+        if group is not None and cv_w.ndim and cv_w.shape[-1] == int(self.n.sum()) > 1:
+            cv_w = cv_w[..., self._seq_block(int(self.n.sum()))]
         # the fleet members a masked loss sums over: (..., *masks, last axis)
         sel = None if masks is None else tuple(
             torch.as_tensor(np.asarray(m), device=self.device) for m in masks)
@@ -916,7 +940,8 @@ class AbstractGP:
                                                             slice(None))).sum()
                 return loss, numer.sum(), denom.sum()
             coeffs, inv_diag = solver.coeffs(), solver.inv_diag()
-            squared = ((coeffs / inv_diag) ** 2 * cv_w).sum(-1, keepdim=True)
+            squared = comm.all_sum(((coeffs / inv_diag) ** 2 * cv_w).sum(-1, keepdim=True),
+                                   group)
             loss = squared.sum() if sel is None else pick(squared, 0).sum()
             nan = torch.full((), math.nan, dtype=loss.dtype, device=loss.device)
             return loss, nan, nan
@@ -926,12 +951,13 @@ class AbstractGP:
                 leaves = {k: v.detach().requires_grad_(trainable[k]) for k, v in raw.items()}
                 loss, term1, term2 = loss_terms(leaves, data)
                 keys = [k for k in leaves if trainable[k]]
-                gs = (torch.autograd.grad(loss, [leaves[k] for k in keys], allow_unused=True)
-                      if keys else ())
+                seed = torch.full_like(loss, 1.0 / comm.size(group))
+                gs = (torch.autograd.grad(loss, [leaves[k] for k in keys], grad_outputs=seed,
+                                          allow_unused=True) if keys else ())
             grads = {k: torch.zeros_like(v) for k, v in raw.items()}
             for k, g in zip(keys, gs):
                 if g is not None:
-                    grads[k] = g
+                    grads[k] = comm.sum_(g, group)
             return loss.detach(), (term1.detach(), term2.detach()), grads
 
         return loss_and_grad

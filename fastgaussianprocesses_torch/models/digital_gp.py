@@ -16,6 +16,7 @@ from ..ops import transforms as tr
 from ..ops.bitops import log2_int
 from ..ops.walsh_closed import MAX_ALPHA
 from ..points.digital_net import DigitalNetB2
+from ..parallel import mesh as pm
 from .fast import AbstractFastGP
 
 
@@ -69,6 +70,11 @@ class FastGPDigitalNetB2(AbstractFastGP):
         return self.dtype
 
     def _ft(self, x):
+        if self._seq_mesh is not None:
+            # K4 on the rank's block subtracts the global row means as it loads
+            return tr._centre_on_load(
+                lambda v, m: pm.sharded_fwht(v, self._seq_mesh, self._seq_axis, m), x,
+                self._seq_group)
         return tr.ft_stable_fwht(x)
 
     _ift = _ft  # the FWHT is its own inverse

@@ -32,6 +32,7 @@ from ..linalg import fast_solver as fs
 from ..ops import perm_fft
 from ..ops import transforms as tr
 from ..ops.bitops import log2_int
+from ..parallel import comm
 from .abstract import AbstractGP, _as_task_array, _cat
 
 
@@ -66,7 +67,7 @@ def _eigenvalues(model, raw, n, task_order, inv_task_order, data, ft):
         lam_pairs[(l0, l1)] = lam.conj() if task_order[l0] > task_order[l1] else lam
     n_sorted = tuple(int(n[o]) for o in task_order)
     lams = fs.effective_lams(lam_pairs, n_sorted, kmat_tasks, params["noise"], task_order,
-                             inv_task_order, model.adaptive_nugget)
+                             inv_task_order, model.adaptive_nugget, group=model._seq_group)
     return lams, kmat_tasks, params["scale"]
 
 
@@ -75,6 +76,11 @@ class _FastSolver:
     the model's ``_ft`` / ``_ift`` hooks, any number of tasks.
 
     ``data``: the fit's ``(k1parts, ytildes)`` (``AbstractFastGP._fit_data``).
+
+    Under a sequence mesh (``use_sequence_sharding``) every tensor along the
+    frequency axis is this rank's block, and each sum over that axis is a
+    differentiable all-reduce over the mesh axis's group, so that every rank
+    holds the same loss.
     """
 
     def __init__(self, model, raw, n, data=None):
@@ -85,9 +91,11 @@ class _FastSolver:
         self.task_order, self.inv_task_order = fs.sort_tasks(self.n)
         self.n_sorted = tuple(int(self.n[o]) for o in self.task_order)
         self._data = data
+        self.group = model._seq_group
         lams, self.kmat_tasks, self.scale = _eigenvalues(
             model, raw, self.n, self.task_order, self.inv_task_order, data, model._ft_lam)
-        self.factor = fs.factorize(lams, self.n_sorted, self.task_order, self.inv_task_order)
+        self.factor = fs.factorize(lams, self.n_sorted, self.task_order, self.inv_task_order,
+                                   group=self.group)
 
     def _split(self, ycat):
         offs = np.concatenate([[0], np.cumsum(self.n)])
@@ -119,13 +127,13 @@ class _FastSolver:
         """The MLL's quadratic and log-determinant terms, (..., 1) each."""
         yts = self._ytildes()
         yt, zt = _cat(yts, -1), _cat(fs.solve_tilde(self.factor, yts), -1)
-        norm = torch.real(yt.conj() * zt).sum(-1, keepdim=True)
+        norm = comm.all_sum(torch.real(yt.conj() * zt).sum(-1, keepdim=True), self.group)
         return norm, self.factor.logdet[..., None]
 
     def gcv_terms(self):
         """Generalized cross-validation numerator and denominator."""
         zt = _cat(fs.solve_tilde(self.factor, self._ytildes()), -1)
-        numer = torch.real(zt.conj() * zt).sum(-1, keepdim=True)
+        numer = comm.all_sum(torch.real(zt.conj() * zt).sum(-1, keepdim=True), self.group)
         denom = ((fs.trace_inverse(self.factor) / float(self.n.sum())) ** 2)[..., None]
         return numer, denom
 
@@ -326,6 +334,44 @@ class AbstractFastGP(AbstractGP):
         self._ytilde_half_cache = {}     # (task, n) -> rfft ytilde
         self._ytilde_perm_cache = {}     # (task, n) -> perm-spectrum ytilde
 
+    # -- sequence parallelism (the transform axis n over a mesh axis) -----
+    def use_sequence_sharding(self, mesh, axis: str = "seq"):
+        """Split the transform axis n over the mesh axis ``axis`` for the fit
+        (``mesh=None`` turns it off).
+
+        Rank c then holds points ``[c L, (c + 1) L)``, L = n / D, of the
+        first-column parts and the ytildes (``_fit_data``); the transforms
+        are ``parallel/mesh``'s sharded ones (kernel K4 on the block for the
+        digital net, ``torch.fft`` for the lattice, then one
+        ``reduce_scatter``); the general solver (``_FastSolver``) serves
+        every model, its sums over n all-reduced, so that the MLL, GCV and
+        CV losses and their gradients come out the same on every rank.  The
+        multitask solver and serving (``post_*``) under a mesh raise
+        ``NotImplementedError`` (ROADMAP queue 1 items 4a, 4b).  Every rank
+        of the mesh must add the same data.
+        """
+        self._seq_mesh, self._seq_axis = mesh, axis
+        for cache in (self._ytilde_cache, self._ytilde_half_cache, self._ytilde_perm_cache,
+                      self._k1parts_lam_cache, self._solver_cache):
+            cache.clear()
+        self._coeffs_cache = None
+
+    def _seq_block(self, n):
+        """This rank's slice of a length-n axis under the sequence mesh."""
+        from ..parallel.mesh import seq_sharding_for
+        sh = seq_sharding_for(1, self._seq_mesh, self._seq_axis)
+        if n % sh.size:
+            raise ValueError(f"n = {n} does not split over the {sh.size} ranks of the "
+                             f"sequence mesh")
+        L = n // sh.size
+        return slice(sh.rank * L, (sh.rank + 1) * L)
+
+    def _no_seq_serving(self):
+        if self._seq_mesh is not None:
+            raise NotImplementedError(
+                "serving (post_* and coeffs) under a sequence mesh is not ported yet "
+                "(ROADMAP queue 1 item 4b); call use_sequence_sharding(None) first")
+
     # -- concrete-model hooks -------------------------------------------
     def _ft(self, x):
         """The general solver's orthonormal transform of the last axis."""
@@ -376,7 +422,10 @@ class AbstractFastGP(AbstractGP):
         key = (l0, l1, int(n))
         cached = self._k1parts_lam_cache.get(key)
         if cached is None:
-            cached = torch.movedim(self._get_k1parts(l0, l1, n), 0, -1).contiguous()
+            if self._seq_mesh is not None:
+                cached = torch.movedim(self._k1parts_block(l0, l1, n), 0, -1).contiguous()
+            else:
+                cached = torch.movedim(self._get_k1parts(l0, l1, n), 0, -1).contiguous()
             self._k1parts_lam_cache[key] = cached
             if len(self._k1parts_lam_cache) > 24:
                 self._k1parts_lam_cache.pop(next(iter(self._k1parts_lam_cache)))
@@ -390,6 +439,14 @@ class AbstractFastGP(AbstractGP):
     _ft_lam_perm = None  # lattice overrides with the permuted-FFT hooks
 
     # -- caches ----------------------------------------------------------
+    def _k1parts_block(self, l0, l1, n):
+        """Under a sequence mesh: the first-column parts of this rank's block
+        of the first n points only, (L, p0, p1, d), natural order."""
+        xb0 = self._to_device(self._get_xxb(l0, n)[1][self._seq_block(n)])
+        xb1 = self._to_device(self._get_xxb(l1, 1)[1][:1])
+        return series.kernel_parts(self._parts_from_delta, xb0, xb1, self._ominus,
+                                   self.derivatives[l0], self.derivatives[l1])
+
     def _get_k1parts(self, l0, l1, n):
         """Hyperparameter-independent first-column series terms, grown
         incrementally as n doubles."""
@@ -408,18 +465,19 @@ class AbstractFastGP(AbstractGP):
     # -- half-spectrum (rfft) and permuted-spectrum paths ---------------
     def _use_half_spectrum(self, n) -> bool:
         """rfft single-task solver: a model with the half-transform hooks, one
-        task, n >= 2, the dense debug oracle off (it checks the general
+        task, n >= 2, no sequence mesh (the sharded transforms are full
+        spectrum), the dense debug oracle off (it checks the general
         solver)."""
-        if self._ft_lam_half is None or self.num_tasks != 1:
+        if self._ft_lam_half is None or self.num_tasks != 1 or self._seq_mesh is not None:
             return False
         return int(np.asarray(n)[0]) >= 2 and not debug_checks_enabled()
 
     def _use_perm_spectrum(self, n) -> bool:
         """Permuted-spectrum solver (kernels K1-K3): CUDA float32, one task, a
-        supported n, the dense debug oracle off.  ``FASTGPS_TORCH_FORCE_PERM=1``
-        takes it on the CPU too (in float32), where the plain kernel versions
-        run."""
-        if self._ft_lam_perm is None or self.num_tasks != 1:
+        supported n, no sequence mesh, the dense debug oracle off.
+        ``FASTGPS_TORCH_FORCE_PERM=1`` takes it on the CPU too (in float32),
+        where the plain kernel versions run."""
+        if self._ft_lam_perm is None or self.num_tasks != 1 or self._seq_mesh is not None:
             return False
         if not perm_fft.supported(int(np.asarray(n)[0])):
             return False
@@ -432,12 +490,15 @@ class AbstractFastGP(AbstractGP):
 
         Incremental doubling: when ``ft(y[:n/2])`` is cached, ``ft(y[:n])`` is
         the one-level radix-2 merge of it with ``ft(y[n/2:n])`` -- a half-size
-        transform and an O(n) merge instead of a full-size transform."""
+        transform and an O(n) merge instead of a full-size transform.  Under a
+        sequence mesh: this rank's block of the sharded transform, no merge."""
         key = (task, n)
         if key not in self._ytilde_cache:
             y = self._y[task]
             prev = self._ytilde_cache.get((task, n // 2))
-            if n > 1 and prev is not None:
+            if self._seq_mesh is not None:
+                yt = self._ft(y[..., self._seq_block(n)])
+            elif n > 1 and prev is not None:
                 half = y[..., n // 2:n]
                 half_t = self._ft(half) if n // 2 > 1 else half.to(self._ftout_dtype())
                 yt = tr.merge_doubling(prev, half_t, self.get_omega(log2_int(n // 2)))
@@ -474,6 +535,7 @@ class AbstractFastGP(AbstractGP):
         if not _all_pow2(n):
             raise ValueError("fast GPs require power-of-two sample counts")
         key = (self._version, tuple(int(v) for v in n))
+        self._no_seq_serving()
         if key not in self._solver_cache:
             self._warm_k1parts(n)
             solver = make_solver(self, self._raw_dict(), n)
@@ -497,6 +559,7 @@ class AbstractFastGP(AbstractGP):
         self._warm_k1parts(np.asarray(n, dtype=np.int64))
 
     def _query_solver_any(self, raw, n):
+        self._no_seq_serving()
         return make_solver(self, raw, np.asarray(n, dtype=np.int64))
 
     def _fit_data(self):

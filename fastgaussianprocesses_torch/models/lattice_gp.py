@@ -16,6 +16,7 @@ from ..ops import transforms as tr
 from ..ops.bernoulli import MAX_ORDER
 from ..ops.bitops import bit_reverse_permutation, log2_int
 from ..points.lattice import LatticeSeq
+from ..parallel import mesh as pm
 from .fast import AbstractFastGP
 
 
@@ -59,13 +60,23 @@ class FastGPLattice(AbstractFastGP):
         return torch.complex128 if self.dtype == torch.float64 else torch.complex64
 
     def _ft(self, x):
+        if self._seq_mesh is not None:
+            return tr._stabilize(lambda v: pm.sharded_fftbr(v, self._seq_mesh, self._seq_axis),
+                                 x, self._seq_group)
         return tr.ft_stable_lattice(x)
 
     def _ift(self, x):
+        if self._seq_mesh is not None:
+            return tr._stabilize(lambda v: pm.sharded_ifftbr(v, self._seq_mesh, self._seq_axis),
+                                 x, self._seq_group)
         return tr.ift_stable_lattice(x)
 
     def _ft_lam(self, k1):
-        """The first column's parts are cached bit-reversed: a plain FFT."""
+        """The first column's parts are cached bit-reversed: a plain FFT.
+        Under a sequence mesh they stay in natural order, and the sharded
+        bit-reversed FFT folds the reversal into its index maps."""
+        if self._seq_mesh is not None:
+            return self._ft(k1)
         return tr.ft_stable_plain_fft(k1)
 
     def get_omega(self, m):
@@ -88,7 +99,10 @@ class FastGPLattice(AbstractFastGP):
 
     def _get_k1parts_lam(self, l0, l1, n):
         """Bit-reverse-permuted first-column parts in the (p0, p1, d, n) layout,
-        so the solver's transform of the first column needs no gather."""
+        so the solver's transform of the first column needs no gather (under
+        a sequence mesh: the rank's block in natural order)."""
+        if self._seq_mesh is not None:
+            return super()._get_k1parts_lam(l0, l1, n)
         key = (l0, l1, int(n))
         cached = self._k1parts_lam_cache.get(key)
         if cached is None:
@@ -138,14 +152,21 @@ class FastGPLattice(AbstractFastGP):
 
     # gather-free transforms of query rows in the training columns' bit-reversed order
     def _ft_q(self, v, pre_permuted=False):
-        return tr.ft_stable_plain_fft(v) if pre_permuted else self._ft(v)
+        if pre_permuted and self._seq_mesh is None:
+            return tr.ft_stable_plain_fft(v)
+        return self._ft(v)
 
     def _ift_q(self, v, pre_permuted=False):
-        return tr.ift_stable_plain(v) if pre_permuted else self._ift(v)
+        if pre_permuted and self._seq_mesh is None:
+            return tr.ift_stable_plain(v)
+        return self._ift(v)
 
     # cross-kernel queries take the TRAINING columns in bit-reversed order,
-    # so the per-chunk transform needs no gather along the long axis
+    # so the per-chunk transform needs no gather along the long axis (natural
+    # order under a sequence mesh)
     def _train_col_perm(self, l, n):
+        if self._seq_mesh is not None:
+            return None
         if int(n) == 0:
             return np.arange(0, dtype=np.int64)
         return bit_reverse_permutation(log2_int(int(n)))

@@ -624,7 +624,7 @@ class _Pfft(torch.autograd.Function):
         if ctx.complex_in:
             raise NotImplementedError(
                 "the backward of pfft on complex rows needs pifft with complex output, "
-                "which kernel K2 does not have yet (ROADMAP queue 2, K2)")
+                "which kernel K2 does not have yet (ROADMAP queue 1 item 4d)")
         return (pifft_real(g, ctx.n) * float(ctx.n)).to(ctx.dtype), None
 
 

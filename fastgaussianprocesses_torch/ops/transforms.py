@@ -15,7 +15,9 @@ matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
 
 The stabilized wrappers subtract the mean before transforming and add
 ``mean * sqrt(n)`` back into the DC bin, avoiding cancellation for
-near-constant inputs.
+near-constant inputs.  Under a sequence mesh (``parallel/mesh``) the input
+is a rank's block of the rows: ``_stabilize`` and ``_centre_on_load`` then
+take the group's global mean and add the DC term on rank 0 only.
 
 Every transform is differentiable: ``pfft`` / ``pifft_real`` and ``fwht``
 are autograd Functions whose backward passes are the kernels again (K2 for
@@ -28,16 +30,30 @@ import math
 
 import torch
 
+from ..parallel import comm
 from .bitops import bit_reverse_permutation, log2_int
 from .fwht import fwht
 from .perm_fft import _cdtype, pfft, pifft_real
 
 
-def _stabilize(transform, x):
-    n = x.shape[-1]
-    xmean = x.mean(-1, keepdim=True)
+def _row_mean(x, group, keepdim):
+    """Row means of ``x``, or, with a process group, of the whole rows whose
+    blocks the group's ranks hold (a sum over the group by the global n).
+    Returns the mean and the global n."""
+    if group is None:
+        return x.mean(-1, keepdim=keepdim), x.shape[-1]
+    n = x.shape[-1] * comm.size(group)
+    return comm.all_sum(x.sum(-1, keepdim=keepdim), group) / n, n
+
+
+def _stabilize(transform, x, group=None):
+    """``transform(x - mean)`` with ``mean * sqrt(n)`` added back into the DC
+    bin.  With a process group ``x`` is this rank's block of the rows, the
+    mean is the global one, and the DC bin lies on rank 0."""
+    xmean, n = _row_mean(x, group, True)
     y = transform(x - xmean)
-    y[..., 0] += (xmean[..., 0] * math.sqrt(n)).to(y.dtype)
+    if comm.rank(group) == 0:
+        y[..., 0] += (xmean[..., 0] * math.sqrt(n)).to(y.dtype)
     return y
 
 
@@ -153,13 +169,13 @@ def get_omega_lattice(m: int, dtype=torch.complex128) -> torch.Tensor:
     return torch.exp((-1j * math.pi) * k / (1 << m)).to(dtype)
 
 
-def _centre_on_load(transform, x):
+def _centre_on_load(transform, x, group=None):
     """``_stabilize`` for a transform that takes the row means and subtracts
     them as it loads the rows (``transform(x, mean)``): no centred copy."""
-    n = x.shape[-1]
-    xmean = x.mean(-1)
+    xmean, n = _row_mean(x, group, False)
     y = transform(x.contiguous(), xmean)
-    y[..., 0] += (xmean * math.sqrt(n)).to(y.dtype)
+    if comm.rank(group) == 0:
+        y[..., 0] += (xmean * math.sqrt(n)).to(y.dtype)
     return y
 
 

@@ -191,8 +191,10 @@ def test_resume_is_bit_for_bit():
     assert torch.equal(rest.step_size, part.step_size)
 
 
-def test_chain_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError):
+def test_chain_sharding_refuses_a_non_sharding():
+    """Chains over devices are ported (``tests/test_torch_parallel.py`` runs
+    them on four ranks); what is not a ``parallel.mesh`` sharding is refused."""
+    with pytest.raises(TypeError, match="chain_sharding must be"):
         th.hmc(_torch_logprob, {k: torch.from_numpy(v) for k, v in INIT.items()}, 0,
                num_samples=1, num_warmup=0, num_chains=2, chain_sharding=object())
 
