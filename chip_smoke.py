@@ -39,6 +39,14 @@ Phases; any failure raises and the exit code is not 0:
    "whole op" time the graph's time a call.  For K3 a second yardstick is
    logged: ``torch.fft.rfft`` with the weights of each conjugate pair
    summed, the strongest single-call form.
+   K2 with complex output (``pifft``; ``check_k12``, ``phase_pifft``): against its plain
+   version at every ``K12_CASES`` split on the spectra of real and complex
+   rows, the round trip ``pifft(pfft(z))``, and ``pfft``'s backward on
+   complex rows (``n * pifft(g)``) against autograd through ``torch.fft``;
+   at n = 2^20, R = 1 its times, bound and library yardstick
+   (``torch.fft.ifft`` after the gather), as for K1/K2; then its path,
+   ``transforms.pifft_ortho`` and that backward with the counters reset
+   just before and read just after (two launches).
    Kernel K4 (``ops/fwht``) the same way at n = 2^14, R = 3 and at the
    shapes of the digital-net path (n = 2^20 with R = 1 and the query chunk,
    R = 119; n = 2^22, R = 1), and against float64 and float32 numpy
@@ -66,7 +74,17 @@ Phases; any failure raises and the exit code is not 0:
    CPU in float32 (plain kernels) and float64.  Each backward alone on the
    card against autograd through ``torch.fft`` (K1/K2) or the CPU plain
    version (K4, float64 and float32) at n = 2^14, 2^20, 2^22 and R = 1, 3,
-   with device times at n = 2^20, R = 1; one ``{"fit_step": ...}`` line.
+   with device times at n = 2^20, R = 1.  The fused fit,
+   ``fit(iterations=20, verbose=0, steps_per_dispatch=-1)`` of each model
+   with the plain versions refused, against K = 32 from the same start: the
+   same iterations, raw parameters within rtol 1e-6 (and whether bit for
+   bit), its launch counters (reset just before, the fit's caches warm)
+   grown by exactly the per-step launches times the 21 steps its one block
+   computes; its step timed beside K = 1 and 32 (chains of 64 steps at
+   K = 64, the loop that -1 runs); the host synchronisations of one block
+   of 64 steps counted under ``torch.cuda.set_sync_debug_mode``: one, its
+   fetch.  One ``{"fit_step": ...}`` line, which holds the fused fit's
+   launch counts.
 6. Multitask, derivative-informed and fleet models, float32 on the card,
    hyperparameters from a seed, the plain versions of K1, K2 and K4 made to
    raise; each fit and the requests with the launch counters reset just
@@ -158,7 +176,8 @@ Phases; any failure raises and the exit code is not 0:
    same seed (1e-5), one K1 and one K2 a gradient on 8 rows.  ``measure_collective_overhead`` at k = 1.  One
    ``{"parallel_one_card": ...}`` line.
 9. The ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (the serving
-   kernels, then K2, K1 and K4 as backwards in the fit, then phase 6's,
+   kernels, K2 with complex output on its path, then K2, K1 and K4 as
+   backwards in the fit, then phase 6's,
    phase 7's and phase 8's roles) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -320,42 +339,60 @@ def device_ms(torch, fn, names, iters=20):
     return us / iters / 1e3
 
 
-def check_k12(torch, tp, g):
-    """Phase 3 for K1/K2: the whole ops ``pfft`` (real and complex rows) and
-    ``pifft_real`` (on both spectra) against their plain versions at
-    ``K12_CASES``; ``pfft`` of the first row against float64 numpy, and the
-    round trip."""
+def check_k12(torch, tp, tf):
+    """Phase 3 for K1/K2: the whole ops ``pfft`` (real and complex rows),
+    ``pifft_real`` and ``pifft`` (K2 with complex output; on both spectra)
+    against their plain versions at ``K12_CASES``; ``pfft`` of the first row
+    against float64 numpy, and the round trips (``pifft_real`` on real rows,
+    ``pifft`` on complex rows); the backward of ``pfft`` on complex rows
+    (``n * pifft(g)``, the plain versions refused) against autograd through
+    ``torch.fft``.  Inputs drawn on the card."""
     dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(R, n):
+        return torch.randn(R, n, generator=g, device=dev)
     for n, R in K12_CASES:
-        x = (torch.randn(R, n, generator=g) + 2.0).to(dev)
-        xc = torch.complex(torch.randn(R, n, generator=g), torch.randn(R, n, generator=g)).to(dev)
+        x = randn(R, n) + 2.0
+        xc, gc = torch.complex(randn(R, n), randn(R, n)), torch.complex(randn(R, n), randn(R, n))
         errs = []
         for rows in (x, xc):
             X = tp.pfft_plain(rows, n)
             errs.append(rel_err(tp.pfft(rows, n), X)[0])
             errs.append(rel_err(tp.pifft_real(X, n), tp.pifft_real_plain(X, n))[0])
+            errs.append(rel_err(tp.pifft(X, n), tp.pifft_plain(X, n))[0])
         want = np.fft.fft(x[:1].cpu().double().numpy(), axis=-1)[:, tp.spectrum_perm(n)]
         got = tp.pfft(x[:1], n)
         e_op = rel_err(got, torch.from_numpy(want))[0]
         e_rt = float((tp.pifft_real(got, n) - x[:1]).abs().max())
+        e_rtc = float((tp.pifft(tp.pfft(xc, n), n) - xc).abs().max())
+        perm = torch.as_tensor(tp.spectrum_perm(n), device=dev)
+        zg, zl = xc.clone().requires_grad_(), xc.clone().requires_grad_()
+        with refuse_plain(tp, tf):
+            b = torch.autograd.grad(tp.pfft(zg, n), zg, gc)[0]
+        e_b = rel_err(b, torch.autograd.grad(torch.fft.fft(zl).index_select(-1, perm), zl,
+                                             gc)[0])[0]
         log(f"  K1/K2 n=2^{int(math.log2(n))} R={R:2d}: max rel err vs plain: pfft real "
-            f"{errs[0]:.3e}, complex {errs[2]:.3e}; pifft_real {errs[1]:.3e}, {errs[3]:.3e} "
-            f"(tol {TOL_KERNEL:.0e}); pfft vs float64 numpy {e_op:.3e} (tol 3e-6), round trip "
-            f"{e_rt:.3e} abs (tol 2e-5)")
-        if not (max(errs) < TOL_KERNEL and e_op < 3e-6 and e_rt < 2e-5):
+            f"{errs[0]:.3e}, complex {errs[3]:.3e}; pifft_real {errs[1]:.3e}, {errs[4]:.3e}; "
+            f"pifft {errs[2]:.3e}, {errs[5]:.3e} (tol {TOL_KERNEL:.0e}); pfft vs float64 numpy "
+            f"{e_op:.3e} (tol 3e-6); round trips {e_rt:.3e}, complex {e_rtc:.3e} abs (tol "
+            f"2e-5); pfft's complex-row backward vs torch.fft autograd {e_b:.3e} (tol "
+            f"{TOL_KERNEL:.0e})")
+        if not (max(errs) < TOL_KERNEL and e_op < 3e-6 and max(e_rt, e_rtc) < 2e-5
+                and e_b < TOL_KERNEL):
             raise AssertionError(f"K1/K2 disagree with their references at n={n}, R={R}")
-        del x, xc, X, got
+        del x, xc, gc, X, got, zg, zl, b
         torch.cuda.empty_cache()
 
 
-def phase_kernels(torch, tp, extra=(), base=True):
+def phase_kernels(torch, tp, tf, extra=(), base=True):
     """Phase 3: every kernel against its plain version; times and bounds, at
     the serving path's shapes and the ``extra`` (n, R) of phases 6-8.  With
     ``base=False`` (``--multichip``), the ``extra`` shapes alone."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     if base:
-        check_k12(torch, tp, g)
+        check_k12(torch, tp, tf)
     rows = {}
     for n, R in ([(1 << 14, 3), (N_MAIN, 1), (N_MAIN, 59)] if base else []) + list(extra):
         A, Bh, Bl, _ = tp._plan(n)
@@ -451,6 +488,63 @@ def phase_kernels(torch, tp, extra=(), base=True):
         del x, xm, X, xb
         torch.cuda.empty_cache()
     return rows
+
+
+def cfft_flops(n, R):
+    """Least FLOPs of a complex FFT of length n (5 n log2 n a row), the work
+    of ``pifft`` whatever the kernel does."""
+    return R * n * 5 * math.log2(n)
+
+
+def phase_pifft(torch, tp, tf, ttr):
+    """Phase 3 for K2 with complex output (``pifft``; ``check_k12`` holds it
+    against its plain version at every split): at n = 2^20, R = 1 the device
+    time of its two launches, the op in a CUDA graph, the plain version, the
+    library yardstick (``torch.fft.ifft`` after the permutation gather) and
+    the bound.  Then its path, with the plain versions refused and the
+    launch counters reset just before and read just after:
+    ``transforms.pifft_ortho`` of a spectrum and the backward of ``pfft`` on
+    complex rows at n = 2^20, R = 1.  Returns the role's row and the path's
+    launch counts."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def crandn(R, n):
+        return torch.complex(torch.randn(R, n, generator=g, device=dev),
+                             torch.randn(R, n, generator=g, device=dev))
+    n, R = N_MAIN, 1
+    X = tp.pfft(crandn(R, n), n)
+    out = tp.pifft(X, n)
+    inv_perm = torch.argsort(torch.as_tensor(tp.spectrum_perm(n), device=dev))
+    bms, by = bound(nbytes(X, out), cfft_flops(n, R))
+    row = dict(ms=device_ms(torch, lambda: tp.pifft(X, n), ("pifft_slab_kernel", "pass_a_kernel")),
+               op_ms=gtime(lambda: tp.pifft(X, n), 50),
+               plain_ms=gtime(lambda: tp.pifft_plain(X, n), 10),
+               library_ms=gtime(lambda: torch.fft.ifft(X.index_select(-1, inv_perm)), 50),
+               bound_ms=bms, bound_by=by, max_abs_err=rel_err(out, tp.pifft_plain(X, n))[1])
+    log(f"  K2 pifft n=2^20 R=1: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, whole op {row['op_ms']:.4f} ms; bound "
+        f"{bms:.4f} ms by {by} ({nbytes(X, out) / 1e6:.1f} MB, "
+        f"{cfft_flops(n, R) / 1e9:.3f} GFLOP)")
+
+    Z, gc = crandn(R, n), crandn(R, n)
+    zg = crandn(R, n).requires_grad_()
+    with refuse_plain(tp, tf):
+        for c in (tp, tf):
+            c.reset_launches()
+        v = ttr.pifft_ortho(Z, n)
+        b = torch.autograd.grad(tp.pfft(zg, n), zg, gc)[0]
+        torch.cuda.synchronize()
+        counts = {k: v_ for c in (tp, tf) for k, v_ in c.launches.items()}
+    e_v = rel_err(v, tp.pifft_plain(Z, n) * math.sqrt(n))[0]
+    e_b = rel_err(b, tp.pifft_plain(gc, n) * float(n))[0]
+    log(f"  its path (pifft_ortho, then pfft's backward on a complex row; plain versions "
+        f"refused): launches {counts}; pifft_ortho vs plain {e_v:.3e}, the backward vs "
+        f"n * plain {e_b:.3e} (tol {TOL_KERNEL:.0e})")
+    if counts["pifft"] != 2 or not max(e_v, e_b) < TOL_KERNEL:
+        raise AssertionError("pifft's path: not two launches of K2 with complex output, "
+                             "or a result off its plain version")
+    return row, counts
 
 
 def _f(x):
@@ -745,11 +839,12 @@ def device_total_ms(torch, fn, iters=10):
 
 
 class refuse_plain:
-    """Within the block, the plain versions of K1, K2 and K4 raise: the card
-    path must reach the kernels only."""
+    """Within the block, the plain versions of K1, K2 (both outputs) and K4
+    raise: the card path must reach the kernels only."""
 
     def __init__(self, tp, tf):
-        self.mods = ((tp, "pfft_plain"), (tp, "pifft_real_plain"), (tf, "fwht_plain"))
+        self.mods = ((tp, "pfft_plain"), (tp, "pifft_real_plain"), (tp, "pifft_plain"),
+                     (tf, "fwht_plain"))
 
     def __enter__(self):
         self.saved = [getattr(m, k) for m, k in self.mods]
@@ -788,6 +883,65 @@ def fit_chain(torch, gp, lg, data, iters, K):
     torch.cuda.synchronize()
 
 
+def block_syncs(torch, gp, lg, data):
+    """Host synchronisations of one block of ``fit(steps_per_dispatch=-1)``
+    (``_fit_steps`` at K = 64, its one fetch included), counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``: one "called a synchronizing
+    CUDA operation" warning a synchronising CUDA call (the mode's own
+    first-use notice is not one)."""
+    import warnings
+    from fastgaussianprocesses_torch.fit.rprop import rprop_init
+    from fastgaussianprocesses_torch.models.abstract import FUSED_BLOCK
+    raw = gp._raw_dict()
+    trainable = {k: p.trainable for k, p in gp.params.items()}
+    gp._fit_steps(lg, raw, rprop_init(raw), data, trainable, 2)        # warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gp._fit_steps(lg, raw, rprop_init(raw), data, trainable, FUSED_BLOCK)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in ws)
+
+
+def fused_vs_k32(torch, tp, tf, cls, per_step, i32, r32):
+    """``fit(iterations=20, verbose=0, steps_per_dispatch=-1)`` of a fresh
+    model, the plain versions refused, the launch counters reset just before
+    (the fit's caches warm) and read just after, against the K = 32 fit of
+    the same start that ended at iteration ``i32`` with raw parameters
+    ``r32``: the same iterations, raw parameters within rtol 1e-6 (and
+    whether bit for bit), and each launch count ``per_step`` times the 21
+    steps the one block computes."""
+    steps = 21
+    gp = fit_model(torch, cls, N_MAIN)
+    gp._warm_for_fit()
+    torch.cuda.synchronize()
+    with refuse_plain(tp, tf):
+        for c in (tp, tf):
+            c.reset_launches()
+        t0 = time.perf_counter()
+        i1 = gp.fit(iterations=20, verbose=0, steps_per_dispatch=-1)["iterations"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for c in (tp, tf) for k, v in c.launches.items()}
+    r1 = {k: p.raw.double().cpu() for k, p in gp.params.items()}
+    rel = max(float(((r1[k] - r32[k]).abs() / r32[k].abs().clamp(min=1e-30)).max())
+              for k in r32 if r32[k].numel())
+    bitwise = all(torch.equal(r1[k], r32[k]) for k in r32)
+    log(f"  fit(iterations=20, steps_per_dispatch=-1): {wall:.3f} s, {i1} iterations "
+        f"(K = 32: {i32}), launches {counts}; raw parameters max rel diff from K = 32's "
+        f"{rel:.3e} (tol 1e-6), bit for bit: {bitwise}")
+    if i1 != i32 or not rel < 1e-6:
+        raise AssertionError("the fused fit disagrees with K = 32")
+    for k, m in per_step.items():
+        if counts[k] != m * steps:
+            raise AssertionError(f"fused fit: {k} launched {counts[k]} times, not {m} x {steps}")
+    return dict(iterations=i1, iterations_K32=i32, raw_max_rel_diff=rel, bit_for_bit=bitwise,
+                launches=counts, wall_s=wall)
+
+
 def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
     """Phase 5: ``fit(iterations=20)`` of one model at n = 2^20, d = 8, float32
     on the card with the plain kernel versions refused; the launch counters
@@ -797,7 +951,10 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
     launches, the kernels ``ours``, the series contraction forward and
     backward) and peak device memory.  ``cv_per_step``: also a short CV fit
     (coefficients through ``pifft_real``, whose backward is K1), with its
-    launches a step.  Returns the launch counts and the measurements."""
+    launches a step.  Then the fused fit (``steps_per_dispatch=-1``) against
+    K = 32 (``fused_vs_k32``), its step (the K = 64 loop) timed beside K = 1
+    and K = 32, and the host synchronisations of one of its blocks
+    (``block_syncs``).  Returns the launch counts and the measurements."""
     from fastgaussianprocesses_torch.kernels import series
     sync = torch.cuda.synchronize
     gp = fit_model(torch, cls, N_MAIN)
@@ -810,6 +967,7 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
         sync()
         wall = time.perf_counter() - t0
         counts = {k: v for c in (tp, tf) for k, v in c.launches.items()}
+    k32 = (out["iterations"], {k: p.raw.double().cpu() for k, p in gp.params.items()})
     steps = 21          # iterations 0..20, all computed in one dispatch of K = 32
     lh = out["loss_hist"]
     log(f"  fit(iterations=20): {wall:.3f} s, {out['iterations']} iterations, MLL "
@@ -836,6 +994,8 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
                 cv_counts[k] < m * 4 for k, m in cv_per_step.items()):
             raise AssertionError("CV fit: non-finite loss or a kernel short of its launches")
         counts["cv"] = cv_counts
+    fused = fused_vs_k32(torch, tp, tf, cls, per_step, *k32)
+    counts["fused"] = fused["launches"]
 
     gp = fit_model(torch, cls, N_MAIN)
     mll_const = N_MAIN * math.log(2 * math.pi)
@@ -847,12 +1007,15 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
         base = torch.cuda.memory_allocated()
         for K in (1, 32):
             fit_chain(torch, gp, lg, data, 32, K)
-        for _ in range(3):          # the two step counts in turns, best of 3 each
-            for K in (1, 32):
+        # the three step modes in turns, best of 3 each; -1 is the K = 64 loop
+        for _ in range(3):
+            for K in (1, 32, 64):
                 t0 = time.perf_counter()
                 fit_chain(torch, gp, lg, data, 64, K)
                 ms = (time.perf_counter() - t0) / 64 * 1e3
-                res[f"step_ms_K{K}"] = min(res.get(f"step_ms_K{K}", math.inf), ms)
+                key = "step_ms_K-1" if K == 64 else f"step_ms_K{K}"
+                res[key] = min(res.get(key, math.inf), ms)
+        res.update(fused_block_syncs=block_syncs(torch, gp, lg, data), fused=fused)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res["peak_above_base_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
         from torch.profiler import ProfilerActivity, profile
@@ -884,7 +1047,7 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
         torch, lambda: torch.autograd.grad(contraction(),
                                            (params["scale"], params["lengthscales"]), g))
     # its plain version: autograd through the product written out in place
-    ind = series._indicator(d0, d0, k1p.dtype, k1p.device)
+    ind = series.pair_consts(d0, d0, c0, c0, k1p.dtype, k1p.device)[0]
 
     def contraction_plain():
         terms = None
@@ -897,8 +1060,13 @@ def phase_fit(torch, ft, tp, tf, cls, solver, per_step, ours, cv_per_step=None):
                                            (params["scale"], params["lengthscales"]), g))
     log(f"  step (loss, gradient, Rprop update), best of 3 chains of 64 steps: "
         f"{res['step_ms_K1']:.3f} ms at steps_per_dispatch 1, {res['step_ms_K32']:.3f} ms at "
-        f"32; peak device memory {res['peak_gib']:.3f} GiB, of which the steps' own "
+        f"32, {res['step_ms_K-1']:.3f} ms at -1 (blocks of 64); peak device "
+        f"memory {res['peak_gib']:.3f} GiB, of which the steps' own "
         f"{res['peak_above_base_gib']:.3f} GiB (the rest was allocated before: caches, data)")
+    log(f"  host synchronisations of one block of 64 steps at -1, its fetch included: "
+        f"{res['fused_block_syncs']}")
+    if res["fused_block_syncs"] != 1:
+        raise AssertionError("a block of the fused fit synchronises the host more than once")
     log(f"  profile of 8 steps (K = 8): wall {res['wall_ms']:.3f} ms a step, device busy "
         f"{res['device_ms']:.4f} ms ({100 * res['device_ms'] / res['wall_ms']:.1f}%), "
         f"{res['launches']:.1f} device launches a step; {'/'.join(per_step)} kernels "
@@ -1401,7 +1569,7 @@ def check_row_cap(torch, tp):
     torch.cuda.empty_cache()
     if any(unwritten) or not max(e1, e2, e3) < TOL_KERNEL:
         raise AssertionError("K1-K3 past the row cap: rows unwritten or wrong")
-    two = {"pfft": 2, "pifft_real": 2, "quad": 2}
+    two = {"pfft": 2, "pifft_real": 2, "pifft": 0, "quad": 2}
     if counts != two or counts_out != two:
         raise AssertionError(f"K1-K3 past the row cap: launches {counts}, {counts_out}, "
                              "not two row blocks")
@@ -2001,8 +2169,8 @@ def multichip(torch):
     per = C_HMC // cards
     fleet_rows = B_FLEET // cards
     log("K1-K4 at a rank's shapes, on card 0, as phase 3 holds and times them")
-    rows = phase_kernels(torch, tp, extra=[(N_FLEET, fleet_rows), (N_HMC, per), (N_MAIN, per)],
-                         base=False)
+    rows = phase_kernels(torch, tp, tf,
+                         extra=[(N_FLEET, fleet_rows), (N_HMC, per), (N_MAIN, per)], base=False)
     rows.update({("K4",) + k: v for k, v in phase_fwht(
         torch, tf, ttr, NB_DIGITAL, extra=[(N_FLEET, fleet_rows), (N_MAIN // cards, 1)],
         base=False).items()})
@@ -2078,6 +2246,7 @@ def main(argv):
     if native.load() is None:
         raise AssertionError("the host lattice library (g++) did not build")
     log(f"  g++ build of {native.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
+    t2 = time.perf_counter()
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
     counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
                               ("pfft", "pifft_real", "quad"), ("pass_a_kernel", "slab_kernel"))
@@ -2086,14 +2255,19 @@ def main(argv):
                                   ("fwht",), ("fwht_",), no_centred_copy=True)
     if nb != NB_DIGITAL:
         raise AssertionError(f"the digital net's query chunk is {nb} rows, not {NB_DIGITAL}")
+    log(f"  phase 2: {time.perf_counter() - t2:.1f} s")
+    t3 = time.perf_counter()
     log("phase 3: kernels against their plain versions")
     # and at phase 6's shapes: fleet_lattice's eigenvalues (K1, K2 its backward) and
     # query chunk (K3 a member); mt_dnb2's shorter tasks' eigenvalues and query rows (K4)
     # and phase 7's: every HMC chain a row of K1/K2 (n = 2^14 and 2^20) or K4 (2^14)
-    rows = phase_kernels(torch, tp, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET),
+    rows = phase_kernels(torch, tp, tf, extra=[(N_FLEET, B_FLEET), (N_FLEET, NB_FLEET),
                                            (N_HMC, C_HMC), (N_MAIN, C_HMC)])
     rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT),
                                                       (N_HMC, C_HMC), (N_FLEET, B_FLEET)])
+    row_pifft, counts_pifft = phase_pifft(torch, tp, tf, ttr)
+    log(f"  phase 3: {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
     log("phase 4: cross-check at n=2^16, d=8")
     # card f32 against CPU f32 runs the same arithmetic but for the kernels'
     # summation order (measured on the H100: lattice at most 6.4e-6; digital
@@ -2109,6 +2283,8 @@ def main(argv):
                      ("card f32 fwht", "cpu f32 (plain fwht)", "cpu f64"),
                      ((5e-5, 5e-5, 1e-4, 5e-5, 5e-5), (5e-4, 5e-3, 1.5e-2, 5e-6, 3e-2)))
 
+    log(f"  phase 4: {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
     log("phase 5: fit at n=2^20, d=8 on the card (the plain kernel versions refused)")
     log("  FastGPLattice (MLL: K1 forward, K2 its backward; CV: K2 forward, K1 its backward)")
     fit_counts, fit_res = phase_fit(torch, ft, tp, tf, ft.FastGPLattice, "_PermSpectrumSolver",
@@ -2124,6 +2300,7 @@ def main(argv):
                    ("card f32 fwht", "cpu f32 (plain fwht)", "cpu f64"))
     log("  each backward alone")
     bwd = backward_checks(torch, tp, tf)
+    log(f"  phase 5: {time.perf_counter() - t5:.1f} s")
     print(json.dumps({"fit_step": {"FastGPLattice": fit_res, "FastGPDigitalNetB2": fit_res_dn}}))
 
     log("phase 6: multitask, derivative-informed and fleet models on the card (the plain "
@@ -2161,6 +2338,11 @@ def main(argv):
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "op_ms": r["op_ms"], "shape": f"n=2^20, R={R}"})
+    kernels.append({"name": "K2 perm_fft.pifft (complex output)", "route": "cuda", "source": src,
+                    "replaces": "fastgaussianprocesses_tpu/ops/pallas_fft.py:268",
+                    "launches": counts_pifft["pifft"], "shape": "n=2^20, R=1",
+                    **{k: row_pifft[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "op_ms")}})
     r = rows_fwht[(N_MAIN, nb)]
     kernels.append({"name": "K4 fwht.fwht", "route": "cuda",
                     "source": "fastgaussianprocesses_torch/csrc/fwht.cu",

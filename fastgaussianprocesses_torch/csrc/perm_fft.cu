@@ -6,6 +6,8 @@
 //                     pass_a_kernel, then pfft_slab_kernel
 //   fgp_pifft_real <- _passb_inv_kernel  (K2: the whole pifft_real, inverse pass A included):
 //                     pifft_slab_kernel, then pass_a_kernel
+//   fgp_pifft      <- _passb_inv_kernel  (K2 with complex output: the whole pifft), the same
+//                     two launches, pass A storing the whole complex value
 //   fgp_quad       <- _quad_kernel       (K3: per row sum_k w_k |X_k|^2, X never stored whole):
 //                     pass_a_kernel, then quad_slab_kernel
 //
@@ -22,12 +24,13 @@
 // K2 uses ifft(X) = conj(fft(conj X)) / n with the two factors in swapped roles:
 //   x[a*B + b] = (1/n) Re sum_k1 w_A^{a k1} w_n^{b k1} sum_k2 conj(X[k1 + A k2]) w_B^{b k2}
 // so it runs the forward slab DFT on the conjugated slab, tw 1 after it, then the forward
-// pass A, keeping the real part: K1's tables and code, in the other order.
+// pass A, keeping the real part (pifft_real) or the conjugate (pifft): K1's tables and
+// code, in the other order.
 //
 // Bound on the H100.  pfft of a real n = 2^20 row reads 4 MB and writes 8 MB; pifft_real
 // reads 8 MB and writes 4 MB: 12 MB, 3.6 us at 3.35 TB/s, against ~52 MFLOP of a real FFT
-// (0.8 us at 67 TFLOP/s).  Bound by bytes.  K3 reads the row once: 0.0751 ms at
-// n = 2^20, R = 59 (247.5 MB).
+// (0.8 us at 67 TFLOP/s).  Bound by bytes.  pifft (complex output) reads 8 MB and writes
+// 8 MB: 16 MB, 5.0 us.  K3 reads the row once: 0.0751 ms at n = 2^20, R = 59 (247.5 MB).
 //
 // Design.  A block's 227 KB of shared memory cannot hold a 4 MB row, so every op is two
 // launches with a (R, A, B) or (R, A/2+1, B) complex scratch between them (8 MB at
@@ -37,8 +40,9 @@
 //        W = 4096 / A columns; the rows are read once.  Input real float32 (K1; K3 also
 //        subtracts the row mean as it loads) or interleaved complex64 (K1 on complex rows,
 //        K2 on its scratch).  Output all A slabs (K1), the half k1 = 0..A/2 (K3: for real
-//        rows slab A - k1 is the conjugate mirror of slab k1), or the real part scaled by
-//        1/n in natural order (K2).
+//        rows slab A - k1 is the conjugate mirror of slab k1), the real part scaled by
+//        1/n in natural order (K2, pifft_real), or the conjugate scaled by 1/n in natural
+//        order as interleaved complex64 (K2, pifft).
 //   slab kernels : one block per (row, k1), B/16 threads (256 at B = 2^12), the length-B
 //        DFT of the slab as Stockham radix-16 passes (one radix 2/4/8 pass first where
 //        log2 B is not a multiple of 4): 16 values a thread in registers, exchanges through
@@ -131,9 +135,10 @@ __device__ __forceinline__ void dft_reg(float2 (&v)[L]) {
 constexpr int kPassAThreads = 256;
 constexpr int kPassATile = 4096;   // complex values a block holds: A rows x W columns
 
-// what pass_a_kernel writes: slabs k1 = 0..A/2 (K3), all A slabs (K1), or the real part
-// times `scale` as float32 in natural order (K2)
-enum PassAOut { kOutHalf, kOutAll, kOutReal };
+// what pass_a_kernel writes: slabs k1 = 0..A/2 (K3), all A slabs (K1), the real part
+// times `scale` as float32 in natural order (K2, pifft_real), or the conjugate times
+// `scale` as complex64 in natural order (K2, pifft: conj(fft(conj X)) / n = ifft(X))
+enum PassAOut { kOutHalf, kOutAll, kOutReal, kOutConj };
 
 // Pass A as an FFT, A = A1 * A2, a = A2*a1 + a2, k1 = p + A1*q:
 //   U[a2, p]       = sum_a1 x[a, b] w_A1^{a1 p}                (registers)
@@ -181,10 +186,14 @@ pass_a_kernel(const float* __restrict__ x, const float* __restrict__ mean,
     for (int q = 0; q < A2; ++q) {
       const int k = p + A1 * q;
       const size_t o = out0 + (static_cast<size_t>(k) << log_b) + c;
-      if constexpr (kOut == kOutReal)
+      if constexpr (kOut == kOutReal) {
         reinterpret_cast<float*>(y)[o] = v[brev_c<A2>(q)].x * scale;
-      else if (kOut == kOutAll || k <= A / 2)
+      } else if constexpr (kOut == kOutConj) {
+        const float2 z = v[brev_c<A2>(q)];
+        reinterpret_cast<float2*>(y)[o] = make_float2(z.x * scale, -z.y * scale);
+      } else if (kOut == kOutAll || k <= A / 2) {
         reinterpret_cast<float2*>(y)[o] = v[brev_c<A2>(q)];
+      }
     }
   }
 }
@@ -558,6 +567,25 @@ bool valid_split(int A, int A0, int log_b) {
          log_b >= kLogRun && log_b <= 14;
 }
 
+// K2's two launches: the slab DFTs of the conjugated spectrum into the scratch y, then
+// pass A storing kOut (kOutReal: float32 out; kOutConj: complex64 out), 1/n included
+template <int kOut>
+cudaError_t run_pifft(const float* X, const float* twa, const float* qt1, const float* qt2,
+                      const float* qtw, float* y, void* out, int R, int A, int log_a0,
+                      int log_b, cudaStream_t s) {
+  if (!valid_split(A, 1 << log_a0, log_b)) return cudaErrorInvalidValue;
+  const size_t smem = slab_smem(log_b, 0);
+  cudaError_t e = allow_smem(pifft_slab_kernel, smem, g_granted_pifft);
+  if (e != cudaSuccess) return e;
+  pifft_slab_kernel<<<dim3(A, R), slab_threads(log_b), smem, s>>>(
+      reinterpret_cast<const float2*>(X), reinterpret_cast<const float2*>(qt1),
+      reinterpret_cast<const float2*>(qt2), reinterpret_cast<const float2*>(qtw),
+      reinterpret_cast<float2*>(y), A, log_a0, ilog2(A) - log_a0, log_b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const float inv_n = 1.f / static_cast<float>(static_cast<size_t>(A) << log_b);   // exact
+  return launch_pass_a<true, kOut>(y, nullptr, twa, out, R, A, log_b, inv_n, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -591,18 +619,17 @@ int fgp_pfft(const float* x, int complex_in, const float* twa, const float* qt1,
 int fgp_pifft_real(const float* X, const float* twa, const float* qt1, const float* qt2,
                    const float* qtw, float* y, float* out, int R, int A, int log_a0, int log_b,
                    void* stream) {
-  if (!valid_split(A, 1 << log_a0, log_b)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = slab_smem(log_b, 0);
-  cudaError_t e = allow_smem(pifft_slab_kernel, smem, g_granted_pifft);
-  if (e != cudaSuccess) return e;
-  pifft_slab_kernel<<<dim3(A, R), slab_threads(log_b), smem, s>>>(
-      reinterpret_cast<const float2*>(X), reinterpret_cast<const float2*>(qt1),
-      reinterpret_cast<const float2*>(qt2), reinterpret_cast<const float2*>(qtw),
-      reinterpret_cast<float2*>(y), A, log_a0, ilog2(A) - log_a0, log_b);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const float inv_n = 1.f / static_cast<float>(static_cast<size_t>(A) << log_b);   // exact
-  return launch_pass_a<true, kOutReal>(y, nullptr, twa, out, R, A, log_b, inv_n, s);
+  return static_cast<int>(run_pifft<kOutReal>(X, twa, qt1, qt2, qtw, y, out, R, A, log_a0,
+                                              log_b, static_cast<cudaStream_t>(stream)));
+}
+
+// K2 with complex output: as fgp_pifft_real, but out (R, n) interleaved complex64, the
+// whole inverse, 1/n included.
+int fgp_pifft(const float* X, const float* twa, const float* qt1, const float* qt2,
+              const float* qtw, float* y, float* out, int R, int A, int log_a0, int log_b,
+              void* stream) {
+  return static_cast<int>(run_pifft<kOutConj>(X, twa, qt1, qt2, qtw, y, out, R, A, log_a0,
+                                              log_b, static_cast<cudaStream_t>(stream)));
 }
 
 // K3: x (R, n) float32 rows, mean (R,); y (R, A/2+1, B) complex scratch; wf (A/2+1, B)

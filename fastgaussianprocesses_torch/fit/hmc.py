@@ -456,8 +456,10 @@ def gp_log_density(model, include=("scale", "lengthscales"), prior_std=3.0):
     current (unbatched) values.  Every reduction is per chain: the norm term,
     ``d_out / prod(logdet.shape[1:]) * logdet[c].sum()`` and the prior."""
     if model._seq_mesh is not None:
-        raise NotImplementedError("the GP log-density under a sequence mesh is not ported; "
-                                  "shard the chains instead (chain_sharding)")
+        raise NotImplementedError("the GP log-density under a sequence mesh is not ported yet "
+                                  "(ROADMAP queue 1, 'The hyperposterior of a "
+                                  "sequence-sharded model'); shard the chains instead "
+                                  "(chain_sharding)")
     model._warm_for_fit()
     d_out = int(np.prod(model.shape_batch)) if model.shape_batch else 1
     mll_const = d_out * float(model.n.sum()) * math.log(2 * math.pi)

@@ -131,9 +131,15 @@ def kernel_parts(parts_fn, x_or_b, z_or_b, ominus, beta0, beta1):
     return torch.stack(rows, dim=-3)
 
 
-def _indicator(beta0, beta1, dtype, device):
+def pair_consts(beta0, beta1, c0, c1, dtype, device):
+    """The host constants of a task pair's contraction as tensors: the
+    indicator ``beta0 + beta1 == 0`` (p0, p1, d) and the coefficients ``c0``
+    (p0,) and ``c1`` (p1,).  A model builds them once
+    (``AbstractFastGP._pair_consts``), as a host copy every fit step would
+    synchronise the host with the card."""
     ind = (np.asarray(beta0)[:, None, :] + np.asarray(beta1)[None, :, :]) == 0
-    return torch.as_tensor(ind, dtype=dtype, device=device)          # (p0, p1, d)
+    return tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+                 for a in (ind, c0, c1))
 
 
 def _factors(parts_t, lengthscales, ind):
@@ -206,13 +212,18 @@ def kernel_from_parts_t(parts_t, beta0, beta1, c0, c1, scale, lengthscales):
     Returns:
         (*batch_broadcast, n) kernel first-column values.
     """
-    ind = _indicator(beta0, beta1, parts_t.dtype, parts_t.device)
+    consts = pair_consts(beta0, beta1, c0, c1, parts_t.dtype, parts_t.device)
+    return kernel_from_consts_t(parts_t, consts, scale, lengthscales)
+
+
+def kernel_from_consts_t(parts_t, consts, scale, lengthscales):
+    """:func:`kernel_from_parts_t` with the pair's :func:`pair_consts`
+    already on the device."""
+    ind, c0, c1 = consts
     # the product over d written out: no (*b, p0, p1, d, n) temporary, and no
     # torch.prod reduction kernel (its first use on the card costs seconds of
     # module loading)
     terms = _prod_terms_t(parts_t, lengthscales, ind)                  # (*b,p0,p1,n)
-    c0 = torch.as_tensor(np.asarray(c0), dtype=parts_t.dtype, device=parts_t.device)
-    c1 = torch.as_tensor(np.asarray(c1), dtype=parts_t.dtype, device=parts_t.device)
     out = torch.sum(torch.sum(terms * c1[:, None], dim=-2) * c0[:, None], dim=-2)
     return scale * out
 

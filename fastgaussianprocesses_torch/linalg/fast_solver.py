@@ -24,6 +24,7 @@ column followed by inclusion of the size-n1 subgroup: in frequency space
 ``sqrt(n1) * ft(k1)[k]`` at (k, k mod n1).
 """
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -102,9 +103,7 @@ def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
     T = len(n_sorted)
     scaled = {}
     for (l0, l1), lam in lam_pairs.items():
-        rdt = lam.abs().dtype
-        scaled[(l0, l1)] = torch.sqrt(
-            torch.tensor(float(n_sorted[l1]), dtype=rdt, device=lam.device)) * lam
+        scaled[(l0, l1)] = _sqrt_n(int(n_sorted[l1]), lam.abs().dtype, lam.device) * lam
     if adaptive_nugget:
         root = inv_task_order[0]  # sorted position of original task 0
         tr00 = comm.all_sum(scaled[(root, root)].sum(-1), group)
@@ -125,12 +124,27 @@ def effective_lams(lam_pairs: dict, n_sorted, kmat_tasks, noise, task_order,
     return out
 
 
+# the fit step reads the two constants below every step: each is built on the
+# device once, as a host copy each time would synchronise the host with the card
+
+@functools.lru_cache(maxsize=256)
+def _sqrt_n(n: int, dtype, device):
+    """``sqrt(n)`` as a 0-d tensor, computed in ``dtype`` on ``device``."""
+    return torch.sqrt(torch.tensor(float(n), dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=256)
+def _residue_mask(r0: int, r1: int, dtype, device):
+    """(r0, r1) mask of the frequencies ``(k, k mod n1)`` that couple in a
+    task pair's residue block."""
+    return torch.as_tensor((np.arange(r0)[:, None] % r1) == np.arange(r1)[None, :],
+                           dtype=dtype, device=device)
+
+
 def _pair_block(lam, r0: int, r1: int, n_min: int):
     """(..., n_min, r0, r1) coupling block for one sorted task pair."""
     lr = lam.reshape(lam.shape[:-1] + (r0, n_min)).transpose(-1, -2)  # (..., n_min, r0)
-    mask = torch.as_tensor((np.arange(r0)[:, None] % r1) == np.arange(r1)[None, :],
-                           dtype=lam.dtype, device=lam.device)
-    return lr[..., :, None] * mask
+    return lr[..., :, None] * _residue_mask(r0, r1, lam.dtype, lam.device)
 
 
 def _inv_logdet_closed(theta, m: int):
@@ -199,7 +213,8 @@ def factorize(lams: dict, n_sorted, task_order, inv_task_order, group=None) -> F
     if group is not None:
         raise NotImplementedError(
             "the multitask solver under a sequence mesh is not ported yet (its residue "
-            "blocks cross the shards; ROADMAP queue 1 item 4a)")
+            "blocks cross the shards; ROADMAP queue 1, 'The multitask solver under a "
+            "sequence mesh')")
     n_min = int(n_sorted[-1])
     r = [int(nl) // n_min for nl in n_sorted]
     rows = []

@@ -40,6 +40,10 @@ def _check_confidence(confidence):
     return norm_ppf(1 - (1 - confidence) / 2)
 
 
+# steps a block of fit(steps_per_dispatch=-1) runs at most (the JAX package's B)
+FUSED_BLOCK = 64
+
+
 def _cat(ts, dim):
     """``torch.cat`` without the copy of a one-tensor list (a query chunk's
     cross-kernel is ~250 MB at n = 2^20)."""
@@ -733,8 +737,22 @@ class AbstractGP:
         CPU, 32 on the card).  Every step's record is kept, so early
         stopping, histories, verbose lines and checkpoints are those of
         K = 1; at most K - 1 steps past the stop are computed and dropped.
-        The JAX package's K = -1 (the whole fit in one device-side loop) is
-        not ported yet and raises ``NotImplementedError``.
+
+        K = -1 is the JAX package's fused fit: the whole fit in blocks of
+        at most ``FUSED_BLOCK`` = 64 steps, one host fetch a block.  It runs
+        the loop above at K = 64, whose one fetch a block carries the
+        block's losses; early stopping and the best-parameter restore follow
+        from them on the host, and the steps past the stop are dropped where
+        the JAX package computes them as masked no-ops.  So the result is the
+        JAX package's -1 and K = 1's (bit for bit in float64).  Two
+        deliberate deviations: a block runs ``min(64, iterations + 1 - i)``
+        steps, so no step past the iteration cap is computed (a 20-iteration
+        fit computes 21 steps, not 64); and -1 is not the default on the
+        card, where the JAX package makes it the default when nothing
+        per-step is asked for: eager PyTorch has no relay backend's
+        per-fetch cost to amortize.  As in the JAX package, K = -1 raises
+        ``ValueError`` with histories, a verbose line (``verbose`` > 0) or
+        ``checkpoint_path``; ``resume_from`` continues as with any K.
 
         ``masks``: index arrays (one row per batch dim, or a boolean mask)
         selecting the members of a ``shape_batch`` fleet whose losses are
@@ -759,11 +777,7 @@ class AbstractGP:
             raise ValueError("iterations must be a non-negative int")
         if steps_per_dispatch is None:
             steps_per_dispatch = 1 if self.device.type == "cpu" else 32
-        if steps_per_dispatch == -1:
-            raise NotImplementedError(
-                "steps_per_dispatch=-1 (the whole fit as one device-side loop) is not "
-                "ported yet (ROADMAP queue 1 item 4c); use K >= 1")
-        K = max(1, int(steps_per_dispatch))
+        K = int(steps_per_dispatch)
         lr = 1e-1 if lr is None else lr
         logtol = math.log(1 + stop_crit_improvement_threshold)
         trainable = {k: p.trainable for k, p in self.params.items()}
@@ -776,6 +790,12 @@ class AbstractGP:
                  ("factor_task_kernel", "noise_task_kernel"))):
             store[name] = store_hists or (flag and any(trainable[k] for k in keys))
         hists = {f"{k}_hist": [] for k, on in store.items() if on}
+        if K == -1:
+            if hists or verbose or checkpoint_path is not None:
+                raise ValueError("steps_per_dispatch=-1 (fused fit) cannot produce per-step "
+                                 "histories, verbose output or checkpoints")
+            K = FUSED_BLOCK
+        K = max(1, K)
         if masks is not None:
             masks = np.atleast_2d(np.asarray(masks))
             d_out = (int(np.prod(np.empty(self.shape_batch)[(*masks,)].shape))

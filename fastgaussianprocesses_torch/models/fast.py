@@ -61,9 +61,8 @@ def _eigenvalues(model, raw, n, task_order, inv_task_order, data, ft):
     lam_pairs = {}
     for i, (l0, l1, a, b, nlen) in enumerate(_sorted_pairs(task_order, n)):
         k1p = data[0][i] if data is not None else model._get_k1parts_lam(a, b, nlen)
-        lam = ft(series.kernel_from_parts_t(
-            k1p, model.derivatives[a], model.derivatives[b], model.derivatives_coeffs[a],
-            model.derivatives_coeffs[b], params["scale"], params["lengthscales"]))
+        lam = ft(series.kernel_from_consts_t(k1p, model._pair_consts(a, b, k1p.dtype),
+                                             params["scale"], params["lengthscales"]))
         lam_pairs[(l0, l1)] = lam.conj() if task_order[l0] > task_order[l1] else lam
     n_sorted = tuple(int(n[o]) for o in task_order)
     lams = fs.effective_lams(lam_pairs, n_sorted, kmat_tasks, params["noise"], task_order,
@@ -330,6 +329,7 @@ class AbstractFastGP(AbstractGP):
         self._k1parts_cache = {}         # (l0, l1) -> (n, p0, p1, d) device tensor
         self._k1parts_lam_cache = {}     # (l0, l1, n) -> (p0, p1, d, n) solver layout
         self._solver_cache = {}          # (version, n-tuple) -> solver
+        self._pair_consts_cache = {}     # (a, b, dtype) -> series.pair_consts
         self._ytilde_cache = {}          # (task, n) -> _ft ytilde (general solver)
         self._ytilde_half_cache = {}     # (task, n) -> rfft ytilde
         self._ytilde_perm_cache = {}     # (task, n) -> perm-spectrum ytilde
@@ -347,8 +347,9 @@ class AbstractFastGP(AbstractGP):
         every model, its sums over n all-reduced, so that the MLL, GCV and
         CV losses and their gradients come out the same on every rank.  The
         multitask solver and serving (``post_*``) under a mesh raise
-        ``NotImplementedError`` (ROADMAP queue 1 items 4a, 4b).  Every rank
-        of the mesh must add the same data.
+        ``NotImplementedError`` (ROADMAP queue 1, "The multitask solver under
+        a sequence mesh" and "Serving under a sequence mesh").  Every rank of
+        the mesh must add the same data.
         """
         self._seq_mesh, self._seq_axis = mesh, axis
         for cache in (self._ytilde_cache, self._ytilde_half_cache, self._ytilde_perm_cache,
@@ -370,7 +371,8 @@ class AbstractFastGP(AbstractGP):
         if self._seq_mesh is not None:
             raise NotImplementedError(
                 "serving (post_* and coeffs) under a sequence mesh is not ported yet "
-                "(ROADMAP queue 1 item 4b); call use_sequence_sharding(None) first")
+                "(ROADMAP queue 1, 'Serving under a sequence mesh'); call "
+                "use_sequence_sharding(None) first")
 
     # -- concrete-model hooks -------------------------------------------
     def _ft(self, x):
@@ -546,6 +548,16 @@ class AbstractFastGP(AbstractGP):
             if len(self._solver_cache) > 8:
                 self._solver_cache.pop(next(iter(self._solver_cache)))
         return self._solver_cache[key]
+
+    def _pair_consts(self, a, b, dtype):
+        """``series.pair_consts`` of original tasks ``a`` and ``b`` on the
+        model's device, built once."""
+        key = (a, b, dtype)
+        if key not in self._pair_consts_cache:
+            self._pair_consts_cache[key] = series.pair_consts(
+                self.derivatives[a], self.derivatives[b], self.derivatives_coeffs[a],
+                self.derivatives_coeffs[b], dtype, self.device)
+        return self._pair_consts_cache[key]
 
     def _warm_k1parts(self, n):
         for _, _, a, b, nlen in _sorted_pairs(fs.sort_tasks(n)[0], n):

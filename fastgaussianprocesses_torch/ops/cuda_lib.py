@@ -28,6 +28,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fgp_pfft": [_P, _I] + [_P] * 6 + [_I] * 4 + [_P],
     "fgp_pifft_real": [_P] * 7 + [_I] * 4 + [_P],
+    "fgp_pifft": [_P] * 7 + [_I] * 4 + [_P],
     "fgp_quad": [_P] * 9 + [_I] * 3 + [_P],
     "fgp_fwht": [_P] * 4 + [ctypes.c_longlong] + [_I] * 6 + [ctypes.c_longlong] + [_I] * 3
                 + [_P],

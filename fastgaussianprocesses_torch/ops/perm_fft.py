@@ -26,11 +26,12 @@ radix-16 passes, each op two launches:
   the twiddle w_n^{k1 b} on the load and writes each slab's bins straight
   into their ``spectrum_perm`` places, as B/128 runs of 128 values
   (:func:`slab_scatter_index`).
-* **K2** :func:`pifft_real` <- ``pallas_fft._passb_inv_kernel`` (the whole
-  ``pifft_real``): ``ifft(X) = conj(fft(conj X)) / n`` with K1's tables and
-  code in the other order: ``pifft_slab_kernel`` gathers each slab's runs
-  conjugated, runs the forward slab DFT and the twiddle after it, then pass
-  A keeps the real part, scaled by 1/n, in natural order.
+* **K2** :func:`pifft_real` and :func:`pifft` <- ``pallas_fft._passb_inv_kernel``
+  (the whole ``pifft_real`` and ``pifft``): ``ifft(X) = conj(fft(conj X)) / n``
+  with K1's tables and code in the other order: ``pifft_slab_kernel`` gathers
+  each slab's runs conjugated, runs the forward slab DFT and the twiddle
+  after it, then pass A keeps the real part (``pifft_real``) or the whole
+  conjugated value (``pifft``, complex64), scaled by 1/n, in natural order.
 * **K3** :func:`quad_partials` <- ``pallas_fft._quad_kernel`` (``pfft_quad``):
   ``sum w |Z|^2`` over the spectrum of mean-centred real rows (centred as
   pass A loads them), the spectrum never written whole: pass A writes only
@@ -45,21 +46,22 @@ the wrappers launch the rows in blocks of at most :data:`MAX_GRID_ROWS`
 (:func:`row_blocks`), the scratch reused from block to block; the
 arithmetic of a row does not depend on its block.
 
-Autograd: :func:`pfft` (on real rows) and :func:`pifft_real` are autograd
-Functions, each the other's backward, so a differentiated loss on the card
-runs K1 and K2 and nothing else: the backward of ``pfft`` is
-``n * pifft_real(g)`` and that of ``pifft_real`` is ``pfft(g) / n``, in
-PyTorch's convention for complex gradients (``dL/dRe + i dL/dIm``).  The
-backward of ``pfft`` on complex rows would need K2 with a complex output
-and raises; :func:`pfft_quad` has no backward and raises if asked for one.
+Autograd: :func:`pfft`, :func:`pifft_real` and :func:`pifft` are autograd
+Functions whose backwards are the kernels again, so a differentiated loss on
+the card runs K1 and K2 and nothing else: the backward of ``pfft`` is
+``n * pifft_real(g)`` on real rows and ``n * pifft(g)`` on complex rows, that
+of ``pifft_real`` and of ``pifft`` is ``pfft(g) / n``, in PyTorch's
+convention for complex gradients (``dL/dRe + i dL/dIm``).  :func:`pfft_quad`
+has no backward and raises if asked for one.
 
 Bound on the H100 (by bytes): ``pfft`` of a real n = 2^20 row reads 4 MB and
 writes 8 MB, ``pifft_real`` the reverse, ~3.6 us at 3.35 TB/s; K3 reads the
-row once.  The (R, A, B) complex scratch between the two launches (8 MB at
-n = 2^20, R = 1) stays in the 50 MB L2.  :func:`pfft_emulate`,
-:func:`pifft_real_emulate` and :func:`quad_emulate` are the kernels'
-algorithms in plain PyTorch, which the CPU tests hold against numpy and the
-JAX package.
+row once; ``pifft`` reads and writes 8 MB, ~5.0 us.  The (R, A, B) complex
+scratch between the two launches (8 MB at n = 2^20, R = 1) stays in the
+50 MB L2.  :func:`pfft_emulate`, :func:`pifft_real_emulate`,
+:func:`pifft_emulate` and :func:`quad_emulate` are the kernels' algorithms
+in plain PyTorch, which the CPU tests hold against numpy and the JAX
+package.
 
 Inputs are float32; the plain versions' matmuls run at full float32
 precision (TF32 is off, see ``config``), as the JAX package leaves them to
@@ -84,7 +86,7 @@ MAX_GRID_ROWS = 65535
 
 # launches of each kernel op since the last reset (one per block of at most MAX_GRID_ROWS
 # rows, itself two kernel launches; the CPU plain versions do not count)
-launches = {"pfft": 0, "pifft_real": 0, "quad": 0}
+launches = {"pfft": 0, "pifft_real": 0, "pifft": 0, "quad": 0}
 
 
 def reset_launches() -> None:
@@ -306,10 +308,21 @@ def pifft_real_plain(X, n: int):
     Xr = X.real.to(torch.float32).contiguous()
     Xi = X.imag.to(torch.float32).contiguous()
     Yr, Yi = passb_inv_plain(Xr, Xi, n)
-    A = _plan(n)[0]
     FAr, FAi = _dev_tables(n, True, X.device)["FA"]
     xr = (FAr * (1.0 / n)) @ Yr - (FAi * (1.0 / n)) @ Yi
     return xr.reshape(-1, n)
+
+
+def pifft_plain(X, n: int):
+    """Plain K2 with complex output: (R, n) permuted spectrum -> (R, n)
+    complex64 inverse (1/n included): :func:`passb_inv_plain`, then the
+    inverse pass A as matmuls on both planes."""
+    X = X.to(torch.complex64)
+    Yr, Yi = passb_inv_plain(X.real.contiguous(), X.imag.contiguous(), n)
+    FAr, FAi = _dev_tables(n, True, X.device)["FA"]
+    FAr, FAi = FAr * (1.0 / n), FAi * (1.0 / n)
+    return torch.complex((FAr @ Yr - FAi @ Yi).reshape(-1, n),
+                         (FAr @ Yi + FAi @ Yr).reshape(-1, n))
 
 
 def quad_plain(xm, wk, n: int):
@@ -407,14 +420,26 @@ def pfft_emulate(x, n: int):
     return out
 
 
-def pifft_real_emulate(X, n: int):
-    """K2's two launches in plain PyTorch: (R, n) permuted spectrum -> (R, n)
-    real part of its inverse (1/n included), as ``conj(fft(conj X)) / n``."""
+def _pifft_unscaled_emulate(X, n: int):
+    """K2's two launches in plain PyTorch before the store: (R, n) permuted
+    spectrum -> (R, n) ``fft(conj X)`` in natural order."""
     A, B = _slab_plan(n)
     z = X.index_select(-1, _scatter_index(n, X.device)).reshape(-1, A, B).conj()
     y = slab_dft(z, n)
     y = y * _tw1(n, A, y.dtype)                               # tw 1 after the slab DFT
-    return pass_a_emulate(y.reshape(-1, n), n).real.reshape(-1, n) * (1.0 / n)
+    return pass_a_emulate(y.reshape(-1, n), n).reshape(-1, n)
+
+
+def pifft_real_emulate(X, n: int):
+    """K2 in plain PyTorch: (R, n) permuted spectrum -> (R, n) real part of
+    its inverse (1/n included), as ``Re(fft(conj X)) / n``."""
+    return _pifft_unscaled_emulate(X, n).real * (1.0 / n)
+
+
+def pifft_emulate(X, n: int):
+    """K2 with complex output in plain PyTorch: (R, n) permuted spectrum ->
+    (R, n) inverse (1/n included), as ``conj(fft(conj X)) / n``."""
+    return _pifft_unscaled_emulate(X, n).conj() * (1.0 / n)
 
 
 def quad_slab_sums(y, wf, n: int):
@@ -532,23 +557,38 @@ def _pfft_cuda(x, n: int, out=None):
     return out
 
 
-def _pifft_real_cuda(X, n: int, out=None):
-    """K2 on CUDA spectra.  ``out``, a test hook as in :func:`_pfft_cuda`: a
-    caller-owned (R, n) float32 output."""
+def _k2_cuda(X, n: int, out, name: str):
+    """K2 on CUDA spectra, the real part (``name`` ``"pifft_real"``: float32
+    output) or the whole inverse (``"pifft"``: complex64 output)."""
     R = X.shape[0]
-    Xin = _as_planes(X, n, "pifft_real spectrum")
+    Xin = _as_planes(X, n, f"{name} spectrum")
+    real = name == "pifft_real"
     if out is None:
-        out = torch.empty((R, n), dtype=torch.float32, device=X.device)
-    _check(out, (R, n), "pifft_real output")
+        out = torch.empty((R, n), dtype=torch.float32 if real else torch.complex64,
+                          device=X.device)
+    _check(out if real else torch.view_as_real(out), (R, n) if real else (R, n, 2),
+           f"{name} output")
     A, B = _slab_plan(n)
     t = _dev_slab_tables(n, X.device)
     blocks = row_blocks(R, MAX_GRID_ROWS)
     y = torch.empty((min(R, MAX_GRID_ROWS), A, B, 2), dtype=torch.float32, device=X.device)
     for r0, r1 in blocks:
-        _launch("fgp_pifft_real", "pifft_real", X.device, _ptr(Xin[r0:r1]),
+        _launch("fgp_" + name, name, X.device, _ptr(Xin[r0:r1]),
                 *[_ptr(t[k]) for k in ("twa", "qt1", "qt2", "qtw")], _ptr(y),
                 _ptr(out[r0:r1]), r1 - r0, A, log2_int(_plan(n)[0]), log2_int(B))
     return out
+
+
+def _pifft_real_cuda(X, n: int, out=None):
+    """K2 on CUDA spectra.  ``out``, a test hook as in :func:`_pfft_cuda`: a
+    caller-owned (R, n) float32 output."""
+    return _k2_cuda(X, n, out, "pifft_real")
+
+
+def _pifft_cuda(X, n: int, out=None):
+    """K2 with complex output on CUDA spectra.  ``out``, a test hook as in
+    :func:`_pfft_cuda`: a caller-owned (R, n) complex64 output."""
+    return _k2_cuda(X, n, out, "pifft")
 
 
 def quad_partials(x, wk, n: int, mean, out=None):
@@ -607,12 +647,17 @@ def _pifft_real_rows(X2, n: int):
             else _pifft_real_cuda(X2, n))
 
 
+def _pifft_rows(X2, n: int):
+    return _owned(pifft_plain(X2, n)) if X2.device.type == "cpu" else _pifft_cuda(X2, n)
+
+
 class _Pfft(torch.autograd.Function):
     """K1 on (R, n) rows.  In PyTorch's convention (``grad = dL/dRe + i
-    dL/dIm``) the backward of ``y = P F x`` for real ``x`` is
-    ``Re(F^H P^T g) = n * pifft_real(g)``: K2, with no conjugation (the JAX
-    package's ``n conj(pifft(conj g))`` is the same map in JAX's
-    convention)."""
+    dL/dIm``) the backward of the C-linear ``y = P F x`` is ``F^H P^T g =
+    n * ifft(P^T g) = n * pifft(g)``: K2 with complex output on complex
+    rows, and on real rows its real part ``n * pifft_real(g)``, with no
+    conjugation (the JAX package's ``n conj(pifft(conj g))`` is the same map
+    in JAX's convention)."""
 
     @staticmethod
     def forward(ctx, x2, n):
@@ -621,11 +666,8 @@ class _Pfft(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.complex_in:
-            raise NotImplementedError(
-                "the backward of pfft on complex rows needs pifft with complex output, "
-                "which kernel K2 does not have yet (ROADMAP queue 1 item 4d)")
-        return (pifft_real(g, ctx.n) * float(ctx.n)).to(ctx.dtype), None
+        inv = pifft(g, ctx.n) if ctx.complex_in else pifft_real(g, ctx.n)
+        return (inv * float(ctx.n)).to(ctx.dtype), None
 
 
 class _PifftReal(torch.autograd.Function):
@@ -642,10 +684,29 @@ class _PifftReal(torch.autograd.Function):
         return (pfft(g, ctx.n) * (1.0 / ctx.n)).to(ctx.dtype), None
 
 
+class _Pifft(torch.autograd.Function):
+    """K2 with complex output on (R, n) spectra.  ``x = (1/n) F^H P^T X`` is
+    C-linear, so in PyTorch's convention its backward is the adjoint
+    ``(1/n) (F^H P^T)^H g = (1/n) P F g = pfft(g) / n``: K1 on complex rows
+    (the JAX package's ``conj(pfft(conj g)) / n`` is the same map in JAX's
+    convention).  For a real spectrum only the real part is kept."""
+
+    @staticmethod
+    def forward(ctx, X2, n):
+        ctx.n, ctx.dtype, ctx.complex_in = n, X2.dtype, X2.is_complex()
+        return _pifft_rows(X2, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = pfft(g, ctx.n) * (1.0 / ctx.n)
+        return (gx if ctx.complex_in else gx.real).to(ctx.dtype), None
+
+
 def pfft(x, n: int):
     """Unnormalized DFT of the last axis in PERMUTED spectrum order
     (``spectrum_perm``), through K1 on the card.  ``x`` real or complex;
-    returns complex64.  Differentiable for real ``x`` (its backward is K2)."""
+    returns complex64.  Differentiable (its backward is K2: ``pifft_real``
+    for real ``x``, ``pifft`` for complex ``x``)."""
     x2, lead = _flatten_batch(x, n)
     return _Pfft.apply(x2, n).reshape(lead + (n,))
 
@@ -656,6 +717,14 @@ def pifft_real(X, n: int):
     forming the imaginary part.  Differentiable (its backward is K1)."""
     X2, lead = _flatten_batch(X, n)
     return _PifftReal.apply(X2, n).reshape(lead + (n,))
+
+
+def pifft(X, n: int):
+    """Inverse of :func:`pfft` (includes 1/n), through K2 on the card:
+    permuted spectrum in, natural order out, complex64.  Differentiable (its
+    backward is K1)."""
+    X2, lead = _flatten_batch(X, n)
+    return _Pifft.apply(X2, n).reshape(lead + (n,))
 
 
 def pfft_quad(x, w, n: int):

@@ -1,8 +1,9 @@
 """Orthonormal fast transforms diagonalizing lattice and digital-net Gram
 matrices (counterpart of ``fastgaussianprocesses_tpu/ops/transforms.py``).
 
-* ``pfft_stable`` / ``pifft_ortho_real`` -- the permuted-spectrum FFT of
-  ``ops/perm_fft`` (kernels K1-K3 on the card), float32, n = 2^14..2^22.
+* ``pfft_stable`` / ``pifft_ortho`` / ``pifft_ortho_real`` -- the
+  permuted-spectrum FFT of ``ops/perm_fft`` (kernels K1-K3 on the card),
+  float32, n = 2^14..2^22.
 * ``rfft_stable_*`` / ``irfft_*`` -- the Hermitian half spectrum over
   ``torch.fft``, for float64 and for n below 2^14.
 * ``ft_stable_lattice`` / ``ift_stable_lattice`` -- the full spectrum over
@@ -19,9 +20,9 @@ near-constant inputs.  Under a sequence mesh (``parallel/mesh``) the input
 is a rank's block of the rows: ``_stabilize`` and ``_centre_on_load`` then
 take the group's global mean and add the DC term on rank 0 only.
 
-Every transform is differentiable: ``pfft`` / ``pifft_real`` and ``fwht``
-are autograd Functions whose backward passes are the kernels again (K2 for
-K1 and K1 for K2, K4 for K4).  The in-place updates below touch only
+Every transform is differentiable: ``pfft`` / ``pifft_real`` / ``pifft`` and
+``fwht`` are autograd Functions whose backward passes are the kernels again
+(K2 for K1 and K1 for K2, K4 for K4).  The in-place updates below touch only
 tensors that no backward reads.
 """
 
@@ -33,7 +34,7 @@ import torch
 from ..parallel import comm
 from .bitops import bit_reverse_permutation, log2_int
 from .fwht import fwht
-from .perm_fft import _cdtype, pfft, pifft_real
+from .perm_fft import _cdtype, pfft, pifft, pifft_real
 
 
 def _row_mean(x, group, keepdim):
@@ -70,6 +71,12 @@ def pfft_stable(x: torch.Tensor) -> torch.Tensor:
     bit-reversed point order."""
     n = x.shape[-1]
     return _stabilize(lambda v: pfft(v, n).mul_(1.0 / math.sqrt(n)), x)
+
+
+def pifft_ortho(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Orthonormal inverse of :func:`pfft_stable`'s transform, complex64;
+    output in bit-reversed point order (the space the forward consumed)."""
+    return pifft(z, n).mul_(math.sqrt(n))
 
 
 def pifft_ortho_real(z: torch.Tensor, n: int) -> torch.Tensor:

@@ -231,7 +231,8 @@ def seq_loss_checks(rank, world, n, d, cv_weights):
     """Under ``use_sequence_sharding`` over ``world`` ranks: the MLL, GCV and
     CV (per-point ``cv_weights``) losses and gradients of both fast models
     at n points in d dimensions, and the raw parameters after
-    ``fit(iterations=3)`` of the lattice's MLL."""
+    ``fit(iterations=3)`` of the lattice's MLL, with one step a dispatch and
+    as the fused fit (``steps_per_dispatch=-1``)."""
     from ..models.digital_gp import FastGPDigitalNetB2
     from ..models.lattice_gp import FastGPLattice
     from .mesh import make_mesh
@@ -249,6 +250,11 @@ def seq_loss_checks(rank, world, n, d, cv_weights):
         if name == "lattice":
             gp.fit(iterations=3, verbose=0)
             out["fit_raw"] = {k: _np(v) for k, v in gp._raw_dict().items()}
+            gp = _build_model(n, d, cls=cls, device="cpu")
+            gp.use_sequence_sharding(mesh)
+            out["fit_iterations_fused"] = gp.fit(iterations=3, verbose=0,
+                                                 steps_per_dispatch=-1)["iterations"]
+            out["fit_raw_fused"] = {k: _np(v) for k, v in gp._raw_dict().items()}
     return out
 
 

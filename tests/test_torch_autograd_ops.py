@@ -1,10 +1,13 @@
 """Port parity for the fit step's backward passes, held against the JAX
 package's VJPs:
 
-* ``perm_fft.pfft`` (real rows) and ``perm_fft.pifft_real``, each the
-  other's backward, against ``jax.vjp`` of the JAX ``pfft`` / ``pifft``
-  (Pallas kernels in interpret mode) and against ``torch.autograd`` through
-  ``torch.fft`` plus the ``spectrum_perm`` gather, at 3e-6 of the max;
+* ``perm_fft.pfft`` (real and complex rows), ``perm_fft.pifft_real`` and
+  ``perm_fft.pifft``, each backward the other kernel, against ``jax.vjp``
+  of the JAX ``pfft`` / ``pifft`` (Pallas kernels in interpret mode) and
+  against ``torch.autograd`` through ``torch.fft`` plus the
+  ``spectrum_perm`` gather, at 3e-6 of the max; ``pifft`` itself (the plain
+  version and the kernel's algorithm) and ``transforms.pifft_ortho``
+  against the JAX package's;
 * ``fwht(x, mean)`` against ``jax.vjp`` of the JAX ``fwht`` in float64;
 * the stabilized transforms against float64 references;
 * ``kernel_from_parts_t``'s value and lengthscale gradient against the JAX
@@ -97,16 +100,60 @@ def test_pifft_real_backward_matches_jax_vjp_and_torch_fft():
 
 
 def test_unsupported_backwards_raise():
-    """``pfft`` of complex rows has no backward yet (it needs K2 with complex
-    output), and ``pfft_quad`` has none: both raise rather than return a
+    """``pfft`` of complex rows has a backward now (K2 with complex output):
+    the gradient of ``sum |pfft(X)|`` equals autograd's through
+    ``torch.fft``; ``pfft_quad`` has none and raises rather than return a
     wrong or missing gradient."""
     _, X = _rows(2, R=1)
     Xt = torch.from_numpy(X).requires_grad_()
-    with pytest.raises(NotImplementedError, match="complex output"):
-        tp.pfft(Xt, N).abs().sum().backward()
+    tp.pfft(Xt, N).abs().sum().backward()
+    X128 = torch.from_numpy(X).to(torch.complex128).requires_grad_()
+    torch.fft.fft(X128).abs().sum().backward()
+    assert _max_rel(Xt.grad.numpy(), X128.grad.numpy()) < TOL_KERNEL
     x = torch.ones(1, N, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         tp.pfft_quad(x, torch.ones(N), N)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_pifft_and_pifft_ortho_match_jax(R):
+    """K2 with complex output: ``pifft`` (the plain version, which the
+    wrapper runs on the CPU) and ``pifft_emulate`` (the kernel's algorithm)
+    against the JAX ``pifft`` (Pallas, interpret mode) and float64 numpy;
+    ``transforms.pifft_ortho`` against the JAX one."""
+    _, X = _rows(7 + R, R=R)
+    want = np.asarray(pf.pifft(jnp.asarray(X), N))
+    inv_perm = np.argsort(tp.spectrum_perm(N))
+    exact = np.fft.ifft(X.astype(np.complex128)[:, inv_perm], axis=-1)
+    got = tp.pifft(torch.from_numpy(X), N).numpy()
+    emu = tp.pifft_emulate(torch.from_numpy(X), N).numpy()
+    assert got.dtype == np.complex64 and got.shape == (R, N)
+    for a in (got, emu, want):
+        assert _max_rel(a, exact) < TOL_KERNEL
+    assert _max_rel(got, want) < TOL_KERNEL and _max_rel(emu, want) < TOL_KERNEL
+    ortho = ttr.pifft_ortho(torch.from_numpy(X), N).numpy()
+    assert _max_rel(ortho, np.asarray(jtr.pifft_ortho(jnp.asarray(X), N))) < TOL_KERNEL
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_complex_backwards_match_jax_vjp_and_torch_fft(R):
+    """The backward of ``pfft`` on complex rows is ``n * pifft(g)`` and that
+    of ``pifft`` is ``pfft(g) / n``: against the JAX VJPs at ``conj(g)``,
+    conjugated back, and against autograd through ``torch.fft``."""
+    x, Z = _rows(11 + R, R=R)
+    _, G = _rows(13 + R, R=R)
+    perm = torch.as_tensor(tp.spectrum_perm(N))
+    for op, jop, lib in (
+            (tp.pfft, pf.pfft, lambda v: torch.fft.fft(v).index_select(-1, perm)),
+            (tp.pifft, pf.pifft, lambda v: torch.fft.ifft(v.index_select(-1, torch.argsort(perm))))):
+        zt = torch.from_numpy(Z).requires_grad_()
+        got = _grad(op(zt, N), zt, torch.from_numpy(G)).numpy()
+        _, vjp = jax.vjp(lambda v: jop(v, N), jnp.asarray(Z))
+        (want_j,) = vjp(jnp.asarray(np.conj(G)))
+        assert _max_rel(got, np.conj(np.asarray(want_j))) < TOL_KERNEL
+        z128 = torch.from_numpy(Z).to(torch.complex128).requires_grad_()
+        want_t = _grad(lib(z128), z128, torch.from_numpy(G).to(torch.complex128)).numpy()
+        assert _max_rel(got, want_t) < TOL_KERNEL
 
 
 @pytest.mark.parametrize("with_mean", [False, True])
@@ -279,10 +326,10 @@ def test_card_backwards_launch_their_kernels(monkeypatch):
     dev = torch.device("cuda")
     xd = torch.from_numpy(x).to(dev).requires_grad_()
     card = {"pfft": _grad(tp.pfft(xd, N), xd, torch.from_numpy(g).to(dev))}
-    assert tp.launches == {"pfft": 1, "pifft_real": 1, "quad": 0}
+    assert tp.launches == {"pfft": 1, "pifft_real": 1, "pifft": 0, "quad": 0}
     Xd = torch.from_numpy(g).to(dev).requires_grad_()
     card["pifft_real"] = _grad(tp.pifft_real(Xd, N), Xd, torch.from_numpy(x).to(dev))
-    assert tp.launches == {"pfft": 2, "pifft_real": 2, "quad": 0}
+    assert tp.launches == {"pfft": 2, "pifft_real": 2, "pifft": 0, "quad": 0}
     xd = torch.from_numpy(x).to(dev).requires_grad_()
     card["fwht"] = _grad(tf.fwht(xd), xd, torch.from_numpy(x).to(dev))
     assert tf.launches == {"fwht": 2}

@@ -1,8 +1,9 @@
 """Port parity for the fit step: ``fit`` on single-task FastGPLattice
 (half-spectrum solver) and FastGPDigitalNetB2 (general solver) in float64
 against the JAX package, side by side and against the pinned goldens of
-``tests/test_goldens.py``; its options (steps per dispatch, checkpoints,
-trainable flags) and what it refuses."""
+``tests/test_goldens.py``; its options (steps per dispatch, the fused fit
+``steps_per_dispatch=-1``, checkpoints, trainable flags) and what it
+refuses."""
 
 import numpy as np
 import pytest
@@ -148,7 +149,8 @@ def test_untrainable_parameters_stay_put():
 
 def test_unported_fit_options_raise():
     """``masks`` (once refused) fit only the selected fleet members;
-    ``steps_per_dispatch=-1`` is still unported and raises."""
+    ``steps_per_dispatch=-1`` (once refused) raises ``ValueError`` with the
+    default verbose line, as in the JAX package."""
     gt = ft.FastGPLattice(2, seed_for_seq=7, shape_batch=(2,), shape_lengthscales=(2, 2),
                           device="cpu")
     x = gt.get_x_next_host(32)
@@ -157,5 +159,96 @@ def test_unported_fit_options_raise():
     gt.fit(iterations=3, verbose=0, masks=[[1]])
     assert torch.equal(gt.lengthscales[0], before[0])
     assert not torch.equal(gt.lengthscales[1], before[1])
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch=-1"):
-        gt.fit(iterations=1, verbose=0, steps_per_dispatch=-1)
+    with pytest.raises(ValueError, match="steps_per_dispatch=-1"):
+        gt.fit(iterations=1, steps_per_dispatch=-1)
+
+
+def _fused_case(kind):
+    """A fresh float64 CPU model of ``kind`` and the fit's extra keywords."""
+    if kind in ("lattice", "dnb2"):
+        gt = CLASSES[kind][0](2, seed_for_seq=42, device="cpu")
+        gt.add_y_next(torch.from_numpy(_f(gt.get_x_next_host(64))))
+        return gt, {}
+    if kind == "multitask":
+        gt = ft.FastGPDigitalNetB2(2, num_tasks=2, seed_for_seq=7, device="cpu")
+        xs = gt.get_x_next_host([32, 16], task=[0, 1])
+        gt.add_y_next([torch.from_numpy(_f(x) + 0.1 * l * np.cos(2 * np.pi * x[:, 1]))
+                       for l, x in enumerate(xs)], task=[0, 1])
+        return gt, {}
+    if kind == "fleet":
+        gt = ft.FastGPLattice(2, seed_for_seq=7, shape_batch=(2,), shape_lengthscales=(2, 2),
+                              device="cpu")
+        x = gt.get_x_next_host(32)
+        gt.add_y_next(torch.from_numpy(np.stack([_f(x), 2 * _f(x)])))
+        return gt, {"masks": [[1]]}
+    gt = ft.StandardGP(2, seed_for_seq=42, device="cpu")
+    gt.add_y_next(torch.from_numpy(_f(gt.get_x_next(32))))
+    return gt, {}
+
+
+@pytest.mark.parametrize("kind,metric", [(k, m) for k in ("lattice", "dnb2")
+                                         for m in ("MLL", "GCV", "CV")]
+                         + [("multitask", "MLL"), ("fleet", "MLL"), ("standard", "MLL")])
+def test_fused_fit_equals_unchunked_bit_for_bit(kind, metric):
+    """``steps_per_dispatch=-1`` (blocks of 64, one fetch each) against
+    K = 1 in float64: the same stop iteration and the same raw
+    parameters bit for bit, through early stops, a stop at the iteration cap
+    past the first block (70 iterations), a 2-task model, a masked fleet
+    and ``StandardGP``."""
+    its = 70 if kind in ("lattice", "dnb2") else 25
+    out = []
+    for K in (1, -1):
+        gt, kw = _fused_case(kind)
+        d = gt.fit(loss_metric=metric, iterations=its, verbose=0, steps_per_dispatch=K, **kw)
+        out.append((d, {k: p.raw.clone() for k, p in gt.params.items()}))
+    (d1, r1), (df, rf) = out
+    assert d1 == df
+    for k in r1:
+        assert torch.equal(r1[k], rf[k]), k
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_fused_fit_matches_jax_fused_fit(name):
+    """The port's ``steps_per_dispatch=-1`` against the JAX package's on the
+    same data: the same iterations, raw parameters to rtol 1e-8."""
+    gt, gj = _pair(name)
+    dt = gt.fit(iterations=20, verbose=0, steps_per_dispatch=-1)
+    dj = gj.fit(iterations=20, verbose=0, steps_per_dispatch=-1)
+    assert dt == {"iterations": int(dj["iterations"])}
+    for k in gt.params:
+        np.testing.assert_allclose(gt.params[k].raw.numpy(), np.asarray(gj.params[k].raw),
+                                   rtol=1e-8, atol=1e-12, err_msg=k)
+
+
+def test_fused_fit_resume_matches_unchunked(tmp_path):
+    """A checkpointed fit resumed with ``steps_per_dispatch=-1`` (from the
+    checkpoint's iteration, waits, best and save losses) lands on the uninterrupted K = 1 fit's stop iteration and parameters, as
+    the JAX package's ``tests/test_fit_metrics.py`` requires of its own."""
+    def build():
+        gt = ft.FastGPLattice(2, seed_for_seq=29, device="cpu")
+        x = gt.get_x_next_host(64)
+        gt.add_y_next(torch.from_numpy(np.cos(2 * np.pi * x[:, 1]) + x.sum(1)))
+        return gt
+
+    full = build()
+    d_full = full.fit(iterations=60, verbose=0)
+    ck = str(tmp_path / "ck.npz")
+    build().fit(iterations=15, verbose=0, checkpoint_path=ck, checkpoint_every=15)
+    resumed = build()
+    d_b = resumed.fit(iterations=60, verbose=0, resume_from=ck, steps_per_dispatch=-1)
+    assert d_b == {"iterations": d_full["iterations"]}
+    for k in full.params:
+        assert torch.equal(resumed.params[k].raw, full.params[k].raw), k
+
+
+@pytest.mark.parametrize("kw", [dict(verbose=1), dict(store_loss_hist=True),
+                                dict(store_hists=True), dict(checkpoint_path="unused.npz")])
+def test_fused_fit_refuses_per_step_records(kw):
+    """``steps_per_dispatch=-1`` keeps nothing per step, so a verbose line,
+    histories or a checkpoint raise ``ValueError`` before any step runs."""
+    gt, _ = _fused_case("lattice")
+    before = {k: p.raw.clone() for k, p in gt.params.items()}
+    with pytest.raises(ValueError, match="steps_per_dispatch=-1"):
+        gt.fit(iterations=3, steps_per_dispatch=-1, **{"verbose": 0, **kw})
+    for k, v in before.items():
+        assert torch.equal(gt.params[k].raw, v), k

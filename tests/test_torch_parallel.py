@@ -275,6 +275,20 @@ def test_sequence_sharded_fit_matches_unsharded(ranks):
                                        err_msg=k)
 
 
+def test_sequence_sharded_fused_fit_matches_unsharded(ranks):
+    """``fit(iterations=3, steps_per_dispatch=-1)`` under the mesh: every
+    rank computes the same global loss, so the same stop flag, and lands on
+    the unsharded fused fit's iteration and parameters."""
+    _, results, _ = ranks
+    gp = dryrun._build_model(N_SEQ, D_SEQ, device="cpu")
+    its = gp.fit(iterations=3, verbose=0, steps_per_dispatch=-1)["iterations"]
+    for r in results:
+        assert r["seq"]["fit_iterations_fused"] == its
+        for k, v in gp._raw_dict().items():
+            np.testing.assert_allclose(r["seq"]["fit_raw_fused"][k], v.numpy(), atol=1e-12,
+                                       err_msg=k)
+
+
 def test_chain_sharded_hmc_matches_unsharded(ranks):
     _, results, refs = ranks
     ref = refs["hmc"]

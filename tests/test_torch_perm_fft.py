@@ -78,8 +78,8 @@ def test_wrappers_take_plain_path_only_on_cpu():
     x = torch.randn(2, n, generator=torch.Generator().manual_seed(1))
     tp.pfft_quad(x, torch.ones(n), n)
     tp.pifft_real(tp.pfft(x, n), n)
-    tp.pfft(x.to(torch.complex64), n)
-    assert tp.launches == {"pfft": 0, "pifft_real": 0, "quad": 0}
+    tp.pifft(tp.pfft(x.to(torch.complex64), n), n)
+    assert tp.launches == {"pfft": 0, "pifft_real": 0, "pifft": 0, "quad": 0}
     meta = torch.empty(1, n, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         tp.pfft(meta, n)
@@ -87,6 +87,8 @@ def test_wrappers_take_plain_path_only_on_cpu():
         tp.pfft(meta.to(torch.complex64), n)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tp.pifft_real(meta.to(torch.complex64), n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tp.pifft(meta.to(torch.complex64), n)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tp.quad_partials(meta, torch.empty(tp._plan(n)[1], tp._plan(n)[0],
                                            tp._plan(n)[2], device="meta"), n,
@@ -100,8 +102,8 @@ def test_wrappers_take_plain_path_only_on_cpu():
 def test_kernels_match_plain_on_card(n, R):
     """K1-K3 on the card against their plain versions (float32, relative to
     the max; the kernels sum in another order than the plain matmuls): K1
-    (``pfft``) on real and complex rows, K2 (``pifft_real``) on the spectra
-    of both.  2^19, 2^20 and 2^21 are the sizes where the kernels' split is
+    (``pfft``) on real and complex rows, K2 (``pifft_real``, and ``pifft``
+    with complex output) on the spectra of both.  2^19, 2^20 and 2^21 are the sizes where the kernels' split is
     not ``_plan``'s.  K3's per-row sums are compared: the kernels give one
     partial per slab k1 <= A/2, the plain version one per k1."""
     if not torch.cuda.is_available():
@@ -115,6 +117,8 @@ def test_kernels_match_plain_on_card(n, R):
         assert _rel(tp.pfft(rows.to(dev), n).cpu().numpy(), X.numpy()) < 3e-6
         want = tp.pifft_real_plain(X, n).numpy()
         assert _rel(tp.pifft_real(X.to(dev), n).cpu().numpy(), want) < 3e-6
+        want = tp.pifft_plain(X, n).numpy()
+        assert _rel(tp.pifft(X.to(dev), n).cpu().numpy(), want) < 3e-6
     m = x.mean(-1)
     A, Bh, Bl, _ = tp._plan(n)
     wk = torch.rand(Bh, A, Bl, generator=g)

@@ -1,5 +1,6 @@
 """Port parity for kernels K1 and K2's two-launch algorithm (ops/perm_fft
-``pfft_emulate`` and ``pifft_real_emulate``: pass A as a length-A FFT, the
+``pfft_emulate``, ``pifft_real_emulate`` and ``pifft_emulate``: pass A as a
+length-A FFT, the
 slab DFT as Stockham passes, and the scatter from the kernels' split to the
 permuted bin order, ``slab_scatter_index``) against float64 numpy and the
 JAX package's ``pallas_fft.pfft`` / ``pifft_real`` (interpret mode), with
@@ -48,7 +49,8 @@ def test_emulation_matches_numpy_and_jax(n, kind, dtype, tol):
     """K1's and K2's algorithms against float64 numpy: float32 at the JAX
     package's tolerance, float64 to 1e-12; in float32 also against the JAX
     package's Pallas ``pfft`` and ``pifft_real`` on the same inputs.  K2 runs
-    on the exact spectrum, so its output is the row's real part."""
+    on the exact spectrum, so its output is the row's real part, or with
+    complex output (``pifft_emulate``) the row itself."""
     x = _rows(n, 3, kind)
     perm = tp.spectrum_perm(n)
     spec = np.fft.fft(x, axis=-1)[:, perm]
@@ -57,6 +59,7 @@ def test_emulation_matches_numpy_and_jax(n, kind, dtype, tol):
     back = tp.pifft_real_emulate(_torch(spec, dtype), n).numpy()
     assert back.shape == (3, n) and back.dtype == (np.float32 if dtype == torch.float32 else np.float64)
     assert _rel(back, x.real) < tol
+    assert _rel(tp.pifft_emulate(_torch(spec, dtype), n).numpy(), x) < tol
     if dtype == torch.float32:
         x32 = x.astype(np.complex64 if kind == "complex" else np.float32)
         assert _rel(got, np.asarray(pf.pfft(jnp.asarray(x32), n))) < 3e-6
@@ -96,11 +99,11 @@ def test_scatter_index_matches_spectrum_perm(m):
 
 @pytest.mark.cuda
 def test_card_ops_never_reach_plain_or_emulation(monkeypatch):
-    """On the card ``pfft`` and ``pifft_real`` are the kernels' launches
-    alone: with the plain versions and the emulation made to raise, and every
-    PyTorch operator of the call recorded, no matmul, einsum or FFT runs,
-    and the ops agree with float64 numpy (3e-6 of the max; the round trip
-    within 2e-5) at n = 2^15, 2^20 and 2^21, on real and complex rows."""
+    """On the card ``pfft``, ``pifft_real`` and ``pifft`` are the kernels'
+    launches alone: with the plain versions and the emulation made to raise,
+    and every PyTorch operator of the call recorded, no matmul, einsum or FFT
+    runs, and the ops agree with float64 numpy (3e-6 of the max; the round
+    trip within 2e-5) at n = 2^15, 2^20 and 2^21, on real and complex rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -117,8 +120,9 @@ def test_card_ops_never_reach_plain_or_emulation(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the card path reached a plain version of K1/K2")
 
-    for name in ("pfft_plain", "pifft_real_plain", "passb_plain", "passb_inv_plain", "_pass_a",
-                 "pfft_emulate", "pifft_real_emulate", "pass_a_emulate", "slab_dft"):
+    for name in ("pfft_plain", "pifft_real_plain", "pifft_plain", "passb_plain",
+                 "passb_inv_plain", "_pass_a", "pfft_emulate", "pifft_real_emulate",
+                 "pifft_emulate", "pass_a_emulate", "slab_dft"):
         monkeypatch.setattr(tp, name, refuse)
     tp.reset_launches()
     calls = 0
@@ -129,6 +133,7 @@ def test_card_ops_never_reach_plain_or_emulation(monkeypatch):
             with Ops() as ops:
                 got = tp.pfft(xt, n)
                 back = tp.pifft_real(got, n)
+                back_c = tp.pifft(got, n)
             torch.cuda.synchronize()
             calls += 1
             bad = [o for o in ops.names if o.split(".")[1] in ("mm", "bmm", "addmm", "matmul", "einsum")
@@ -140,4 +145,6 @@ def test_card_ops_never_reach_plain_or_emulation(monkeypatch):
                 assert np.abs(back.cpu().numpy() - x).max() < 2e-5
             else:
                 assert _rel(back.cpu().numpy(), x.real) < 3e-6
+            assert np.abs(back_c.cpu().numpy() - x).max() < 2e-5
     assert tp.launches["pfft"] == calls and tp.launches["pifft_real"] == calls
+    assert tp.launches["pifft"] == calls
