@@ -185,7 +185,7 @@ Phases; any failure raises and the exit code is not 0:
 the kernels and the host library in this process, then spawns one NCCL
 rank a card
 (``parallel/dryrun.SpawnedRanks``: a ``FileStore`` rendezvous, every
-collective timed out after 900 s, the ranks killed after 1000 s), each
+collective timed out after 300 s, the ranks killed after 1000 s), each
 running ``parallel/smoke.body`` with the whole set: the fleet step against
 the one-card step; the sequence-sharded MLL, GCV and CV loss and gradient
 of both flagship models at n = 2^20 in float32 against the one-card
@@ -198,8 +198,18 @@ gradient K1 + K2 on 2 rows a rank, every log-density finite, the first 4
 iterations against the one-card sampler on the same row blocks at 1e-5,
 the whole run's acceptance within 0.25 and step size within 2x of the
 one-card run's); ``measure_hmc_scaling`` and
-``measure_collective_overhead`` at k = 1 and 4; ``dryrun_multichip(4)``.
-Then, on card 0, K1-K4 at the shapes a rank runs, through phase 3's own
+``measure_collective_overhead`` at k = 1 and 4; ``dryrun_multichip(4)``;
+then the three paths under a sequence mesh, each against rank 0's one-card
+run (``parallel/smoke.TOL``): serving of both flagships (``post_mean_var``
+of 4096 points, ``coeffs``, the cubature mean and variance; a steady
+request timed on 4 cards and on 1, profiled on rank 0; a rank's peak
+memory), mt_dnb2 (3 tasks at n = 2^20, 2^19, 2^18, M = 7: the MLL and its
+gradient timed on 4 cards and 1, the all-to-alls a step counted;
+``post_mean_var`` of 1024 points a task) and the hyperposterior of
+``hmc_flagship``'s configuration on the lattice and the digital net (the
+log-density and gradient of 8 chains, samples/s on 4 cards and 1, the
+ranks' samples bit for bit equal).  Then, on card 0, K1-K4 at the shapes a
+rank runs, those K4 met on the three paths included, through phase 3's own
 checks and timings (``phase_kernels`` / ``phase_fwht`` with ``base=False``).  It prints one
 ``{"parallel": ...}`` line, the ``nvidia-smi`` line, a ``{"kernels":
 [...]}`` line of those roles with the four-card launches and, last,
@@ -2118,7 +2128,8 @@ def phase7(torch, ft, tp, tf):
 PARALLEL_ONE = dict(full=False, n_fleet=N_FLEET, n_seq=N_MAIN, n_hmc=N_HMC,
                     hmc_lattice=dict(num_samples=20, num_warmup=20, num_chains=C_HMC, seed=0))
 PARALLEL_FULL = dict(full=True, n_fleet=N_FLEET, n_seq=N_MAIN, n_seq64=N_FLEET,
-                     n_mem=(N_MAIN, 1 << 22), n_hmc=N_HMC, n_flag=N_MAIN,
+                     n_mem=(N_MAIN, 1 << 22), n_hmc=N_HMC, n_flag=N_MAIN, n_query=N_QUERY,
+                     mt_ns=MT_NS, n_query_mt=1024,
                      hmc_lattice=dict(num_samples=50, num_warmup=300, num_chains=C_HMC, seed=0),
                      hmc_flagship=dict(num_samples=20, num_warmup=20, num_chains=C_HMC, seed=0,
                                        max_leapfrog=32))
@@ -2162,17 +2173,29 @@ def multichip(torch):
     log(f"phase 8 on {cards} cards: one NCCL rank a card")
     t0 = time.perf_counter()
     res = dryrun.run_ranks(smoke.body, cards, dict(PARALLEL_FULL, dtype=torch.float32),
-                           backend="nccl", timeout=1000.0, collective_timeout=900.0)
+                           backend="nccl", timeout=1000.0, collective_timeout=300.0)
     log(f"  ranks: {time.perf_counter() - t0:.1f} s")
     out = res[0]
     print(json.dumps({"parallel": out}, default=str))
     per = C_HMC // cards
     fleet_rows = B_FLEET // cards
+    # K4's roles on the sequence-mesh paths: (name, [n, rows, launches] on rank 0)
+    seq_roles = [
+        ("K4 fwht.fwht (sequence-sharded serving, digital net, a rank's blocks)",
+         out["seq_serving"]["dnb2"]["k4_shapes"]),
+        ("K4 fwht.fwht (sequence-sharded mt_dnb2 MLL and gradient, a rank's pair blocks)",
+         out["seq_multitask"]["step_k4_shapes"]),
+        ("K4 fwht.fwht (sequence-sharded mt_dnb2 serving, a rank's blocks)",
+         out["seq_multitask"]["serve_k4_shapes"]),
+        ("K4 fwht.fwht (sequence-sharded hmc_flagship digital net, 8 chains' rank blocks)",
+         out["seq_hmc"]["dnb2"]["k4_shapes"])]
+    seq_shapes = sorted({(n, R) for _, shapes in seq_roles for n, R, _ in shapes})
     log("K1-K4 at a rank's shapes, on card 0, as phase 3 holds and times them")
     rows = phase_kernels(torch, tp, tf,
                          extra=[(N_FLEET, fleet_rows), (N_HMC, per), (N_MAIN, per)], base=False)
     rows.update({("K4",) + k: v for k, v in phase_fwht(
-        torch, tf, ttr, NB_DIGITAL, extra=[(N_FLEET, fleet_rows), (N_MAIN // cards, 1)],
+        torch, tf, ttr, NB_DIGITAL, extra=sorted({(N_FLEET, fleet_rows), (N_MAIN // cards, 1),
+                                                  *seq_shapes}),
         base=False).items()})
     src, fwsrc = ("fastgaussianprocesses_torch/csrc/perm_fft.cu",
                   "fastgaussianprocesses_torch/csrc/fwht.cu")
@@ -2197,6 +2220,8 @@ def multichip(torch):
               ("K1", N_MAIN, per), hf["pfft"]),
              ("K2 as pfft's backward (chain-sharded hmc_flagship; the timed run)",
               ("K2", N_MAIN, per), hf["pifft_real"])]
+    roles += [(f"{name}, n=2^{int(math.log2(n))} R={R}", ("K4", n, R), c)
+              for name, shapes in seq_roles for n, R, c in shapes]
     kernels = []
     for name, key, launches in roles:
         r = rows[key]

@@ -454,12 +454,18 @@ def gp_log_density(model, include=("scale", "lengthscales"), prior_std=3.0):
 
     taking a dict of ``(C, *shape)`` leaves to ``(C,)``, and the leaves'
     current (unbatched) values.  Every reduction is per chain: the norm term,
-    ``d_out / prod(logdet.shape[1:]) * logdet[c].sum()`` and the prior."""
-    if model._seq_mesh is not None:
-        raise NotImplementedError("the GP log-density under a sequence mesh is not ported yet "
-                                  "(ROADMAP queue 1, 'The hyperposterior of a "
-                                  "sequence-sharded model'); shard the chains instead "
-                                  "(chain_sharding)")
+    ``d_out / prod(logdet.shape[1:]) * logdet[c].sum()`` and the prior.
+
+    Under a sequence mesh (``use_sequence_sharding``) every chain is a row of
+    the rank's block of the transforms, the solver all-reduces the norm and
+    the log-determinant, so every rank holds the same values, and the sampled
+    leaves enter through ``comm.shared_input``, whose backward averages the
+    ranks' gradients: seeded with 1 (as ``hmc`` seeds it), each rank then
+    holds the whole gradient, the same on every rank.  So every rank makes
+    the same accept decisions and leapfrog counts, and issues the same
+    collectives.  Every rank of the mesh calls the sampler with the same
+    arguments."""
+    group = model._seq_group
     model._warm_for_fit()
     d_out = int(np.prod(model.shape_batch)) if model.shape_batch else 1
     mll_const = d_out * float(model.n.sum()) * math.log(2 * math.pi)
@@ -475,7 +481,7 @@ def gp_log_density(model, include=("scale", "lengthscales"), prior_std=3.0):
     def logprob(sampled):
         C = next(iter(sampled.values())).shape[0]
         raw = dict(raw_full)
-        raw.update(sampled)
+        raw.update({k: comm.shared_input(v, group) for k, v in sampled.items()})
         solver = model._solver_pure(raw, data)
         norm, logdet = solver.norm_logdet_terms()
         logdet = per_chain(logdet, C)
@@ -507,7 +513,16 @@ def sample_gp_hyperposterior(model, num_samples=500, num_warmup=500,
     target (``target_accept=None``): 0.9 in float64, 0.8 in float32, whose
     MLL surface is too rough for 0.9.  ``trajectory_jitter`` applies only
     with ``trajectory_adapt="fixed"``.
+
+    A sequence-sharded model (``use_sequence_sharding``) samples with all
+    chains on every rank of its mesh (see :func:`gp_log_density`);
+    ``chain_sharding`` on top of it, a 2-D mesh of chains and sequence,
+    raises ``NotImplementedError``.
     """
+    if chain_sharding is not None and model._seq_mesh is not None:
+        raise NotImplementedError("chain_sharding of a sequence-sharded model (a 2-D mesh of "
+                                  "chains and sequence) is not supported: shard either the "
+                                  "chains or the sequence")
     if target_accept is None:
         target_accept = 0.9 if model.dtype == torch.float64 else 0.8
     logprob, sampled0 = gp_log_density(model, include=include, prior_std=prior_std)

@@ -22,6 +22,17 @@ task (M == 1) is purely diagonal arithmetic on its eigenvalues.
 For tasks l0 <= l1 (so n0 >= n1) the cross Gram is convolution by the first
 column followed by inclusion of the size-n1 subgroup: in frequency space
 ``sqrt(n1) * ft(k1)[k]`` at (k, k mod n1).
+
+Under a sequence mesh of D ranks (``group``), rank c holds frequencies
+``[c n_l / D, (c + 1) n_l / D)`` of every task, which cut across the residue
+classes.  The factorization and the solves therefore move each task's
+vector into the residue layout first: rank c then holds residues
+``[c m, (c + 1) m)``, m = n_min / D, with all r_l frequencies of each
+(:func:`to_residues`, one ``all_to_all`` for all the vectors of a call), and
+back after the solve (:func:`from_residues`, one more).  The blocks are
+factorized where they land, and every sum over residues is an all-reduce,
+so the log-determinant, traces and diagonals come out the same on every
+rank.  This needs n_min % D == 0.
 """
 
 import functools
@@ -50,7 +61,9 @@ class FastFactor(NamedTuple):
     ``task_order`` / ``inv_task_order``: permutations between original and
     sorted task indexing.
     ``group``: the process group over whose ranks the frequency axis is
-    split (each holds its block of ``lam_eff``), or None.
+    split, or None.  With one task each rank holds its block of ``lam_eff``;
+    with several, its residues' blocks of ``inv``, (..., n_min / D, M, M)
+    (see the module docstring).
     """
 
     lam_eff: Optional[torch.Tensor]
@@ -141,10 +154,88 @@ def _residue_mask(r0: int, r1: int, dtype, device):
                            dtype=dtype, device=device)
 
 
-def _pair_block(lam, r0: int, r1: int, n_min: int):
-    """(..., n_min, r0, r1) coupling block for one sorted task pair."""
-    lr = lam.reshape(lam.shape[:-1] + (r0, n_min)).transpose(-1, -2)  # (..., n_min, r0)
-    return lr[..., :, None] * _residue_mask(r0, r1, lam.dtype, lam.device)
+def _pair_block(lr, r1: int):
+    """(..., p, r0, r1) coupling block for one sorted task pair from its
+    eigenvalues in the residue layout ``lr``, (..., r0, p): row j, residue i
+    is frequency ``j n_min + i``."""
+    r0 = lr.shape[-2]
+    return lr.transpose(-1, -2)[..., :, None] * _residue_mask(r0, r1, lr.dtype, lr.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _residue_plan(rs: tuple, m: int, D: int, c: int, device):
+    """Rank c's index maps of :func:`to_residues` for vectors of r_v m entries
+    each (``rs``).  In chunks of m entries, vector v is (r_v, D) chunks, row j,
+    column d at global chunk ``g = j D + d``; rank c holds chunks
+    ``[c r_v, (c + 1) r_v)`` and rank d wants column d.  Returns ``(send,
+    in_splits, out_splits, recv, send_inv, recv_inv)``: ``send`` orders the
+    rank's concatenated vectors by destination rank (then vector, then
+    chunk), ``recv`` orders what arrives (by source rank, then vector, then
+    chunk) into the rows of every vector, (sum r_v, m) flattened, and the
+    last two are their inverse permutations."""
+    send, in_splits = [], [0] * D
+    for dst in range(D):
+        off = 0
+        for r in rs:
+            for q in range(r):
+                if (c * r + q) % D == dst:
+                    send.append(off + q)
+                    in_splits[dst] += m
+            off += r
+    arrived, out_splits = [], [0] * D
+    for src in range(D):
+        row = 0
+        for r in rs:
+            for j in range(r):
+                if (j * D + c) // r == src:
+                    arrived.append(row + j)
+                    out_splits[src] += m
+            row += r
+    chunk = np.arange(m)
+    send = (np.asarray(send)[:, None] * m + chunk).reshape(-1)
+    recv = (np.argsort(arrived)[:, None] * m + chunk).reshape(-1)
+    return (torch.as_tensor(send, device=device), tuple(in_splits), tuple(out_splits),
+            torch.as_tensor(recv, device=device), torch.as_tensor(np.argsort(send), device=device),
+            torch.as_tensor(np.argsort(recv), device=device))
+
+
+def _cat_last(xs):
+    batch = np.broadcast_shapes(*[tuple(x.shape[:-1]) for x in xs])
+    return torch.cat([x.expand(batch + tuple(x.shape[-1:])) for x in xs], -1)
+
+
+def to_residues(xs, rs, group):
+    """Vectors ``xs`` (..., r_v m) of the frequency-block layout (each rank its
+    block of every vector of r_v n_min entries) -> this rank's residues
+    ``[c m, (c + 1) m)`` of each, as (..., r_v, m): one ``all_to_all``."""
+    D, c = comm.size(group), comm.rank(group)
+    m = xs[0].shape[-1] // rs[0]
+    send, ins, outs, recv, _, _ = _residue_plan(tuple(rs), m, D, c, xs[0].device)
+    got = comm.all_to_all(_cat_last(xs).index_select(-1, send), group, ins, outs)
+    rows = got.index_select(-1, recv)
+    rows = rows.reshape(rows.shape[:-1] + (sum(rs), m))
+    return list(torch.split(rows, list(rs), -2))
+
+
+def from_residues(ys, rs, group):
+    """The inverse of :func:`to_residues`: (..., r_v, m) pieces -> the rank's
+    blocks (..., r_v m), one ``all_to_all``."""
+    D, c = comm.size(group), comm.rank(group)
+    m = ys[0].shape[-1]
+    _, ins, outs, _, send_inv, recv_inv = _residue_plan(tuple(rs), m, D, c, ys[0].device)
+    rows = torch.cat(ys, -2)
+    rows = rows.reshape(rows.shape[:-2] + (-1,))
+    got = comm.all_to_all(rows.index_select(-1, recv_inv), group, outs, ins)
+    blocks = got.index_select(-1, send_inv)
+    return list(torch.split(blocks, [r * m for r in rs], -1))
+
+
+def _on_first_rank(x, group):
+    """``x`` of the rank that holds frequency (or residue) 0, on every rank:
+    one all-reduce of the value zeroed elsewhere."""
+    if group is None:
+        return x
+    return comm.all_sum(x if comm.rank(group) == 0 else torch.zeros_like(x), group)
 
 
 def _inv_logdet_closed(theta, m: int):
@@ -210,22 +301,25 @@ def factorize(lams: dict, n_sorted, task_order, inv_task_order, group=None) -> F
         lam = lams[(0, 0)]
         return FastFactor(lam_eff=lam, inv=None, group=group,
                           logdet=comm.all_sum(torch.log(lam.abs()).sum(-1), group), **meta)
-    if group is not None:
-        raise NotImplementedError(
-            "the multitask solver under a sequence mesh is not ported yet (its residue "
-            "blocks cross the shards; ROADMAP queue 1, 'The multitask solver under a "
-            "sequence mesh')")
     n_min = int(n_sorted[-1])
     r = [int(nl) // n_min for nl in n_sorted]
+    keys = [(l0, l1) for l0 in range(T) for l1 in range(l0, T)]
+    if group is None:
+        lrs = {k: lams[k].reshape(lams[k].shape[:-1] + (r[k[0]], n_min)) for k in keys}
+    else:
+        if n_min % comm.size(group):
+            raise ValueError(f"the smallest task's n = {n_min} does not split over the "
+                             f"{comm.size(group)} ranks of the sequence mesh")
+        lrs = dict(zip(keys, to_residues([lams[k] for k in keys], [r[k[0]] for k in keys],
+                                         group)))
     rows = []
     for l0 in range(T):
         cols = []
         for l1 in range(T):
             if l0 <= l1:
-                cols.append(_pair_block(lams[(l0, l1)], r[l0], r[l1], n_min))
+                cols.append(_pair_block(lrs[(l0, l1)], r[l1]))
             else:
-                cols.append(_pair_block(lams[(l1, l0)], r[l1], r[l0], n_min)
-                            .transpose(-1, -2).conj())
+                cols.append(_pair_block(lrs[(l1, l0)], r[l0]).transpose(-1, -2).conj())
         batch = np.broadcast_shapes(*[tuple(c.shape[:-2]) for c in cols])
         rows.append(torch.cat([c.expand(batch + tuple(c.shape[-2:])) for c in cols], -1))
     batch = np.broadcast_shapes(*[tuple(rw.shape[:-2]) for rw in rows])
@@ -244,7 +338,8 @@ def factorize(lams: dict, n_sorted, task_order, inv_task_order, group=None) -> F
     else:
         logdet = torch.linalg.slogdet(theta).logabsdet
         inv = torch.linalg.inv(theta)
-    return FastFactor(lam_eff=None, inv=inv, logdet=logdet.sum(-1), **meta)
+    return FastFactor(lam_eff=None, inv=inv, logdet=comm.all_sum(logdet.sum(-1), group),
+                      group=group, **meta)
 
 
 def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
@@ -260,7 +355,10 @@ def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
     n_min = int(factor.n_sorted[-1])
     r = [int(nl) // n_min for nl in factor.n_sorted]
     ys = [tildes[o] for o in factor.task_order]
-    ys = [y.reshape(y.shape[:-1] + (rl, n_min)) for y, rl in zip(ys, r)]
+    if factor.group is None:
+        ys = [y.reshape(y.shape[:-1] + (rl, n_min)) for y, rl in zip(ys, r)]
+    else:
+        ys = to_residues(ys, r, factor.group)
     batch = np.broadcast_shapes(*[tuple(y.shape[:-2]) for y in ys])
     y = torch.cat([y.expand(batch + tuple(y.shape[-2:])) for y in ys], -2)  # (..., M, n_min)
     inv = factor.inv
@@ -275,11 +373,11 @@ def solve_tilde(factor: FastFactor, tildes, extra_ndim: int = 0):
                            for i in range(m)], -2)
     else:
         out = torch.einsum("...pij,...pj->...pi", inv, y.transpose(-1, -2)).transpose(-1, -2)
-    outs, off = [], 0
-    for rl in r:
-        blk = out[..., off:off + rl, :]
-        outs.append(blk.reshape(blk.shape[:-2] + (rl * n_min,)))
-        off += rl
+    pieces = list(torch.split(out, r, -2))
+    if factor.group is None:
+        outs = [p.reshape(p.shape[:-2] + (-1,)) for p in pieces]
+    else:
+        outs = from_residues(pieces, r, factor.group)
     return [outs[o] for o in factor.inv_task_order]
 
 
@@ -287,7 +385,8 @@ def trace_inverse(factor: FastFactor):
     """Real trace of the inverse Gram (the GCV denominator)."""
     if factor.lam_eff is not None:
         return comm.all_sum(torch.real(1.0 / factor.lam_eff).sum(-1), factor.group)
-    return torch.diagonal(factor.inv, dim1=-2, dim2=-1).real.sum((-1, -2))
+    return comm.all_sum(torch.diagonal(factor.inv, dim1=-2, dim2=-1).real.sum((-1, -2)),
+                        factor.group)
 
 
 def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
@@ -305,6 +404,8 @@ def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
     (-1)^<c, j> (``"walsh"``).  ``point_class_fn(task, n_l, r_l)`` maps each
     of the task's points to its class in [0, r_l).  With one task every
     frequency is its own block and the diagonal is ``mean(Re(1/lam))``.
+    Under a sequence mesh the sum over residues is an all-reduce, and each
+    task's diagonal is the rank's block of its points.
     """
     if factor.lam_eff is not None:
         lam = factor.lam_eff
@@ -326,8 +427,12 @@ def inv_diag_pointspace(factor: FastFactor, kind: str, point_class_fn):
         else:
             v = np.where(_popcount_and(c[:, None], c[None, :]) % 2 == 1, -1.0, 1.0)
         v = torch.as_tensor(v, device=block.device).to(block.dtype)
-        vals = torch.einsum("cj,...pjk,ck->...c", v.conj(), block, v).real / float(n_sorted[l])
+        vals = comm.all_sum(torch.einsum("cj,...pjk,ck->...c", v.conj(), block, v).real,
+                            factor.group) / float(n_sorted[l])
         classes = np.asarray(point_class_fn(factor.task_order[l], int(n_sorted[l]), rl))
+        if factor.group is not None:
+            L = classes.shape[0] // comm.size(factor.group)
+            classes = classes[comm.rank(factor.group) * L:(comm.rank(factor.group) + 1) * L]
         out_sorted.append(vals.index_select(-1, torch.as_tensor(classes, device=vals.device)))
         off += rl
     return [out_sorted[o] for o in factor.inv_task_order]
@@ -345,11 +450,12 @@ def _popcount_and(a, b):
 
 def dc_block(factor: FastFactor):
     """(..., T, T) zero-frequency inverse entries in SORTED task order
-    (posterior cubature)."""
+    (posterior cubature); under a sequence mesh the first rank's, which holds
+    frequency 0 (residue 0), on every rank."""
     if factor.lam_eff is not None:
-        return (1.0 / factor.lam_eff[..., 0])[..., None, None]
+        return _on_first_rank((1.0 / factor.lam_eff[..., 0])[..., None, None], factor.group)
     r = [int(nl) // int(factor.n_sorted[-1]) for nl in factor.n_sorted]
     offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(r)[:-1]]).astype(np.int64),
                               device=factor.inv.device)
     sub = factor.inv[..., 0, :, :]
-    return sub.index_select(-2, offsets).index_select(-1, offsets)
+    return _on_first_rank(sub.index_select(-2, offsets).index_select(-1, offsets), factor.group)

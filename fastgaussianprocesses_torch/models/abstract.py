@@ -66,6 +66,36 @@ class AbstractGP:
         from ..parallel.mesh import axis_group
         return axis_group(self._seq_mesh, self._seq_axis)
 
+    def _seq_block(self, n):
+        """This rank's slice of a length-n axis under the sequence mesh."""
+        from ..parallel.mesh import seq_sharding_for
+        sh = seq_sharding_for(1, self._seq_mesh, self._seq_axis)
+        if n % sh.size:
+            raise ValueError(f"n = {n} does not split over the {sh.size} ranks of the "
+                             f"sequence mesh")
+        L = n // sh.size
+        return slice(sh.rank * L, (sh.rank + 1) * L)
+
+    def _cols(self, n):
+        """The training columns this rank holds of each task at sample counts
+        ``n``: all of them, or under a sequence mesh the rank's block of each
+        (``n_l / D`` points, natural order)."""
+        n = np.asarray(n, dtype=np.int64)
+        if self._seq_mesh is None:
+            return n
+        blocks = [self._seq_block(int(v)) for v in n]
+        return np.asarray([b.stop - b.start for b in blocks], dtype=np.int64)
+
+    def _gather_cols(self, x, n):
+        """The whole vectors from every rank's blocks ``x`` (task blocks along
+        the last axis, ``_cols(n)``), task after task (identity without a
+        mesh)."""
+        if self._seq_mesh is None:
+            return x
+        group = self._seq_group
+        parts = torch.split(x, [int(v) for v in self._cols(n)], -1)
+        return _cat([comm.all_gather_cat(p.contiguous(), group, -1) for p in parts], -1)
+
     def __init__(self,
                  seqs,
                  num_tasks=None,
@@ -387,7 +417,12 @@ class AbstractGP:
     # ------------------------------------------------------------------
     @property
     def coeffs(self):
-        r"""Coefficients $K^{-1} y$ (cached per parameter version and n)."""
+        r"""Coefficients $K^{-1} y$ (cached per parameter version and n); under
+        a sequence mesh the whole vector on every rank."""
+        return self._gather_cols(self._coeffs_local(), self.n)
+
+    def _coeffs_local(self):
+        """The coefficients of this rank's training columns (``_cols``)."""
         key = (self._version, tuple(self.n.tolist()))
         if self._coeffs_cache is None or self._coeffs_cache[0] != key:
             self._warm_for_query(self.n)
@@ -425,12 +460,15 @@ class AbstractGP:
     def get_xb_q(self, l: int, n: int):
         """Training columns for queries, in the model's query column order
         (cached on the device: at n = 2^20, d = 8 one copy is 32 MB, and each
-        query chunk reads it)."""
+        query chunk reads it); under a sequence mesh the rank's block of
+        them, in natural order."""
         key = (l, int(n))
         cached = self._xbq_cache.get(key)
         if cached is None:
             xb = np.asarray(self._get_xxb(l, int(n))[1])
             perm = self._train_col_perm(l, int(n))
+            if self._seq_mesh is not None:
+                xb = xb[self._seq_block(int(n))]
             cached = self._to_device(xb if perm is None else xb[np.asarray(perm)])
             self._xbq_cache[key] = cached
             while len(self._xbq_cache) > 4:
@@ -447,7 +485,8 @@ class AbstractGP:
 
     def _cross_kmat(self, x, task, n, params, kmat_tasks):
         """(..., T, N, sum n_l) cross-covariance against the training set
-        (columns in the model's query column order)."""
+        (columns in the model's query column order; under a sequence mesh
+        the rank's columns, ``_cols(n)``)."""
         scale, ls = params["scale"], params["lengthscales"]
         rows = []
         for t in task:
@@ -474,6 +513,9 @@ class AbstractGP:
         return torch.empty((), dtype=self.dtype).element_size()
 
     def _query_chunk_size(self, N: int, total_n: int) -> int:
+        """Query rows a chunk for ``total_n`` training columns (a rank's under a
+        sequence mesh, which every rank computes alike from the replicated n,
+        so that all run the same number of chunks and collectives)."""
         per_row = self._QUERY_LIVE_FACTOR * max(total_n, 1) * self._query_itemsize()
         return int(max(1, min(N, self._QUERY_CHUNK_BYTES // per_row)))
 
@@ -506,7 +548,7 @@ class AbstractGP:
             task = self.default_task
         task, inttask = _as_task_array(task, self.num_tasks)
         self._warm_for_query(self.n)
-        nb = self._query_chunk_size(x.shape[0], int(self.n.sum()))
+        nb = self._query_chunk_size(x.shape[0], int(self._cols(self.n).sum()))
         raw = self._raw_dict()
         params = self._transformed(raw)
         kmat_tasks = self._task_gram(raw)
@@ -514,10 +556,12 @@ class AbstractGP:
         if self._query_pre_permuted(self.n):  # match the kmat column order
             coeffs = coeffs[..., torch.as_tensor(self._query_col_index(self.n),
                                                  device=self.device)]
+        group = self._seq_group
 
         def one(xc):
             kmat = self._cross_kmat(xc, task, self.n, params, kmat_tasks)
-            return torch.matmul(kmat, coeffs[..., None, :, None])[..., 0]
+            # under a sequence mesh each rank sums its columns, then one all-reduce
+            return comm.all_sum(torch.matmul(kmat, coeffs[..., None, :, None])[..., 0], group)
 
         pmean = self._map_query_chunks(one, x, nb)
         return pmean[..., 0, :] if inttask else pmean
@@ -530,7 +574,7 @@ class AbstractGP:
             task = self.default_task
         task, inttask = _as_task_array(task, self.num_tasks)
         self._warm_for_query(n)
-        nb = self._query_chunk_size(x.shape[0], int(n.sum()))
+        nb = self._query_chunk_size(x.shape[0], int(self._cols(n).sum()))
         pp = self._query_pre_permuted(n)
         raw = self._raw_dict()
         params = self._transformed(raw)
@@ -560,33 +604,46 @@ class AbstractGP:
             task = self.default_task
         task, inttask = _as_task_array(task, self.num_tasks)
         self._warm_for_query(n)
-        nb = self._query_chunk_size(x.shape[0], int(n.sum()))
+        nb = self._query_chunk_size(x.shape[0], int(self._cols(n).sum()))
         pp = self._query_pre_permuted(n)
-        # kmat columns are in the model's query order for the n-sized
-        # training sets; the MEAN pairs the current-n subset of them with the
-        # equally-reordered coeffs
-        offs_n = np.concatenate([[0], np.cumsum(n)])
-        offs_c = np.concatenate([[0], np.cumsum(self.n)])
-        sel_cols, coef_cols = [], []
-        for l in range(self.num_tasks):
-            perm = self._train_col_perm(l, int(n[l]))
-            order = np.asarray(perm) if perm is not None else np.arange(int(n[l]))
-            mask = order < self.n[l]
-            sel_cols.append(offs_n[l] + np.nonzero(mask)[0])
-            coef_cols.append(offs_c[l] + order[mask])
-        sel_cols = np.concatenate(sel_cols)
-        coef_cols = np.concatenate(coef_cols)
-        sel_identity = same_n and bool(np.array_equal(sel_cols, np.arange(int(n.sum()))))
-        coef_identity = bool(np.array_equal(coef_cols, np.arange(int(self.n.sum()))))
         raw = self._raw_dict()
         params = self._transformed(raw)
         kmat_tasks = self._task_gram(raw)
         solver = self._query_solver_any(raw, n)
         solver_mean = solver if same_n else self._query_solver_any(raw, self.n)
         coeffs = solver_mean.coeffs()
-        if not coef_identity:
-            coeffs = coeffs[..., torch.as_tensor(coef_cols, device=self.device)]
-        sel = None if sel_identity else torch.as_tensor(sel_cols, device=self.device)
+        group = self._seq_group
+        sel = None
+        if self._seq_mesh is not None:
+            # the kmat columns are the rank's blocks of the n-sized training
+            # sets: pair them with the coefficients of those points, 0 past
+            # the current n
+            if not same_n:
+                whole = torch.split(self._gather_cols(coeffs, self.n),
+                                    [int(v) for v in self.n], -1)
+                coeffs = _cat([torch.nn.functional.pad(c, (0, int(n[l]) - int(self.n[l])))
+                               [..., self._seq_block(int(n[l]))]
+                               for l, c in enumerate(whole)], -1)
+        else:
+            # kmat columns are in the model's query order for the n-sized
+            # training sets; the MEAN pairs the current-n subset of them with
+            # the equally-reordered coeffs
+            offs_n = np.concatenate([[0], np.cumsum(n)])
+            offs_c = np.concatenate([[0], np.cumsum(self.n)])
+            sel_cols, coef_cols = [], []
+            for l in range(self.num_tasks):
+                perm = self._train_col_perm(l, int(n[l]))
+                order = np.asarray(perm) if perm is not None else np.arange(int(n[l]))
+                mask = order < self.n[l]
+                sel_cols.append(offs_n[l] + np.nonzero(mask)[0])
+                coef_cols.append(offs_c[l] + order[mask])
+            sel_cols = np.concatenate(sel_cols)
+            coef_cols = np.concatenate(coef_cols)
+            sel_identity = same_n and bool(np.array_equal(sel_cols, np.arange(int(n.sum()))))
+            coef_identity = bool(np.array_equal(coef_cols, np.arange(int(self.n.sum()))))
+            if not coef_identity:
+                coeffs = coeffs[..., torch.as_tensor(coef_cols, device=self.device)]
+            sel = None if sel_identity else torch.as_tensor(sel_cols, device=self.device)
 
         def one(xc):
             prior = self._prior_diag(xc, task, params, kmat_tasks)
@@ -594,7 +651,7 @@ class AbstractGP:
             var = torch.clamp(prior - solver.gram_quad_diag(kmat, extra_ndim=2,
                                                             pre_permuted=pp), min=0.0)
             km = kmat if sel is None else kmat[..., sel]
-            mean = torch.matmul(km, coeffs[..., None, :, None])[..., 0]
+            mean = comm.all_sum(torch.matmul(km, coeffs[..., None, :, None])[..., 0], group)
             return torch.stack([mean.broadcast_to(var.shape), var], 0)
 
         out = self._map_query_chunks(one, x, nb)
@@ -625,7 +682,7 @@ class AbstractGP:
         task1, inttask1 = _as_task_array(task1, self.num_tasks)
         equal = equal_x and np.array_equal(task0, task1)
         self._warm_for_query(n)
-        total_n = max(int(n.sum()), 1)
+        total_n = max(int(self._cols(n).sum()), 1)
         third = self._QUERY_CHUNK_BYTES // 3
         item = torch.empty((), dtype=self.dtype).element_size()
         nb = max(1, third // (self._QUERY_LIVE_FACTOR * total_n * self._query_itemsize()))
@@ -637,6 +694,7 @@ class AbstractGP:
         kmat_tasks = self._task_gram(raw)
         scale, ls = params["scale"], params["lengthscales"]
         solver = self._query_solver_any(raw, n)  # factorized once
+        group = self._seq_group
 
         def prior_tile(x0c, x1c):
             return torch.stack([torch.stack([
@@ -657,8 +715,9 @@ class AbstractGP:
 
             def inner(x0c):      # (nb0, d) -> (..., T0, T1, nb0, B1)
                 kmat = self._cross_kmat(x0c, task0, n, params, kmat_tasks)
-                return prior_tile(x0c, x1b) - torch.einsum("...ani,...bmi->...abnm",
-                                                           kmat, t_sol)
+                # a rank's columns, then one all-reduce a tile under a sequence mesh
+                return prior_tile(x0c, x1b) - comm.all_sum(
+                    torch.einsum("...ani,...bmi->...abnm", kmat, t_sol), group)
             return self._map_query_chunks(inner, x0, nb0, dim=-2)
 
         pcov = self._map_query_chunks(per_block, x1, B1, dim=-1)
@@ -925,13 +984,15 @@ class AbstractGP:
         sums the ranks' gradients): each rank seeds the backward with 1 / D
         and the gradients, all of replicated parameters, are then summed
         over the group.  A per-point ``cv_weights`` is cut to the rank's
-        block of points, like the ytildes."""
+        block of each task's points, like the ytildes."""
         trainable = {k: p.trainable for k, p in self.params.items()}
         group = self._seq_group
         cv_w = torch.as_tensor(np.asarray(cv_weights, dtype=np.float64), dtype=self.dtype,
                                device=self.device)
         if group is not None and cv_w.ndim and cv_w.shape[-1] == int(self.n.sum()) > 1:
-            cv_w = cv_w[..., self._seq_block(int(self.n.sum()))]
+            offs = np.concatenate([[0], np.cumsum(self.n)])
+            cv_w = _cat([cv_w[..., offs[l]:offs[l + 1]][..., self._seq_block(int(self.n[l]))]
+                         for l in range(self.num_tasks)], -1)
         # the fleet members a masked loss sums over: (..., *masks, last axis)
         sel = None if masks is None else tuple(
             torch.as_tensor(np.asarray(m), device=self.device) for m in masks)

@@ -79,7 +79,9 @@ class _FastSolver:
     Under a sequence mesh (``use_sequence_sharding``) every tensor along the
     frequency axis is this rank's block, and each sum over that axis is a
     differentiable all-reduce over the mesh axis's group, so that every rank
-    holds the same loss.
+    holds the same loss.  The point-space vectors it takes and returns
+    (query rows, coefficients) are then the rank's block of each task's
+    points (``model._cols``), and its quadratic forms are all-reduced.
     """
 
     def __init__(self, model, raw, n, data=None):
@@ -91,13 +93,14 @@ class _FastSolver:
         self.n_sorted = tuple(int(self.n[o]) for o in self.task_order)
         self._data = data
         self.group = model._seq_group
+        self._cols = model._cols(self.n)
         lams, self.kmat_tasks, self.scale = _eigenvalues(
             model, raw, self.n, self.task_order, self.inv_task_order, data, model._ft_lam)
         self.factor = fs.factorize(lams, self.n_sorted, self.task_order, self.inv_task_order,
                                    group=self.group)
 
     def _split(self, ycat):
-        offs = np.concatenate([[0], np.cumsum(self.n)])
+        offs = np.concatenate([[0], np.cumsum(self._cols)])
         return [ycat[..., offs[l]:offs[l + 1]] for l in range(len(self.n))]
 
     # ``pre_permuted``: the rows are in the model's query column order, so the
@@ -115,7 +118,8 @@ class _FastSolver:
         (Parseval)."""
         yst = [self.model._ft_q(y, pre_permuted) for y in self._split(ycat)]
         zst = fs.solve_tilde(self.factor, yst, extra_ndim=extra_ndim)
-        return sum(torch.real(a.conj() * b).sum(-1) for a, b in zip(yst, zst))
+        return comm.all_sum(sum(torch.real(a.conj() * b).sum(-1) for a, b in zip(yst, zst)),
+                            self.group)
 
     def _ytildes(self):
         if self._data is not None:
@@ -137,6 +141,7 @@ class _FastSolver:
         return numer, denom
 
     def coeffs(self):
+        """``K^-1 y`` in point space (the rank's blocks under a mesh)."""
         zts = fs.solve_tilde(self.factor, self._ytildes())
         return _cat([torch.real(self.model._ift(z)) for z in zts], -1)
 
@@ -336,43 +341,40 @@ class AbstractFastGP(AbstractGP):
 
     # -- sequence parallelism (the transform axis n over a mesh axis) -----
     def use_sequence_sharding(self, mesh, axis: str = "seq"):
-        """Split the transform axis n over the mesh axis ``axis`` for the fit
-        (``mesh=None`` turns it off).
+        """Split the transform axis n over the mesh axis ``axis`` for every
+        solve: the fit, serving and the hyperposterior (``mesh=None`` turns
+        it off).  Every rank of the mesh must add the same data and make the
+        same calls with the same arguments, and each returns the whole,
+        replicated result.
 
-        Rank c then holds points ``[c L, (c + 1) L)``, L = n / D, of the
-        first-column parts and the ytildes (``_fit_data``); the transforms
-        are ``parallel/mesh``'s sharded ones (kernel K4 on the block for the
-        digital net, ``torch.fft`` for the lattice, then one
-        ``reduce_scatter``); the general solver (``_FastSolver``) serves
-        every model, its sums over n all-reduced, so that the MLL, GCV and
-        CV losses and their gradients come out the same on every rank.  The
-        multitask solver and serving (``post_*``) under a mesh raise
-        ``NotImplementedError`` (ROADMAP queue 1, "The multitask solver under
-        a sequence mesh" and "Serving under a sequence mesh").  Every rank of
-        the mesh must add the same data.
+        Rank c holds points ``[c L, (c + 1) L)``, L = n_l / D, of each task:
+        its block of the first-column parts and the ytildes (``_fit_data``)
+        and of the cross-kernel's columns (``get_xb_q``, natural order).  The
+        transforms are ``parallel/mesh``'s sharded ones (kernel K4 on the
+        block for the digital net, ``torch.fft`` for the lattice, then one
+        ``reduce_scatter``), and the general solver (``_FastSolver``) serves
+        every model:
+
+        * the MLL, GCV and CV losses and their gradients: each sum over n is
+          an all-reduce, so every rank holds the same loss;
+        * several tasks: the residue blocks cross the ranks' frequency
+          blocks, so each factorization and solve moves the tilde vectors
+          into the residue layout and back, one ``all_to_all`` each way
+          (``linalg/fast_solver``); the smallest task's n must split over the
+          ranks;
+        * serving: the mean sums the rank's columns of the cross-kernel
+          against its coefficients, the variances and covariances take the
+          quadratic form of the rank's columns, each followed by one
+          all-reduce a query chunk; the query chunk size comes from the
+          replicated n, so every rank runs the same chunks; ``coeffs`` is
+          gathered whole; the cubature reads frequency 0 from the first rank
+          (``fs.dc_block``) and sums the coefficients over the ranks.
         """
         self._seq_mesh, self._seq_axis = mesh, axis
         for cache in (self._ytilde_cache, self._ytilde_half_cache, self._ytilde_perm_cache,
-                      self._k1parts_lam_cache, self._solver_cache):
+                      self._k1parts_lam_cache, self._solver_cache, self._xbq_cache):
             cache.clear()
         self._coeffs_cache = None
-
-    def _seq_block(self, n):
-        """This rank's slice of a length-n axis under the sequence mesh."""
-        from ..parallel.mesh import seq_sharding_for
-        sh = seq_sharding_for(1, self._seq_mesh, self._seq_axis)
-        if n % sh.size:
-            raise ValueError(f"n = {n} does not split over the {sh.size} ranks of the "
-                             f"sequence mesh")
-        L = n // sh.size
-        return slice(sh.rank * L, (sh.rank + 1) * L)
-
-    def _no_seq_serving(self):
-        if self._seq_mesh is not None:
-            raise NotImplementedError(
-                "serving (post_* and coeffs) under a sequence mesh is not ported yet "
-                "(ROADMAP queue 1, 'Serving under a sequence mesh'); call "
-                "use_sequence_sharding(None) first")
 
     # -- concrete-model hooks -------------------------------------------
     def _ft(self, x):
@@ -537,7 +539,6 @@ class AbstractFastGP(AbstractGP):
         if not _all_pow2(n):
             raise ValueError("fast GPs require power-of-two sample counts")
         key = (self._version, tuple(int(v) for v in n))
-        self._no_seq_serving()
         if key not in self._solver_cache:
             self._warm_k1parts(n)
             solver = make_solver(self, self._raw_dict(), n)
@@ -571,7 +572,6 @@ class AbstractFastGP(AbstractGP):
         self._warm_k1parts(np.asarray(n, dtype=np.int64))
 
     def _query_solver_any(self, raw, n):
-        self._no_seq_serving()
         return make_solver(self, raw, np.asarray(n, dtype=np.int64))
 
     def _fit_data(self):
@@ -627,19 +627,20 @@ class AbstractFastGP(AbstractGP):
     def post_cubature_mean(self, task=None):
         """Closed-form posterior mean of the integral over [0,1]^d: the kernels
         integrate to ``scale``, so only the DC part of the coefficients
-        survives."""
+        survives (under a sequence mesh each rank sums its coefficients, then
+        one all-reduce)."""
         kmat_tasks = self.gram_matrix_tasks
-        coeffs = self.coeffs
+        coeffs = self._coeffs_local()
         if task is None:
             task = self.default_task
         task, inttask = _as_task_array(task, self.num_tasks)
-        offs = np.concatenate([[0], np.cumsum(self.n)])
+        offs = np.concatenate([[0], np.cumsum(self._cols(self.n))])
         tidx = torch.as_tensor(task, device=self.device)
         pieces = []
         for l in range(self.num_tasks):
             cl = (self.scale * coeffs[..., offs[l]:offs[l + 1]])[..., None, :]
             pieces.append(cl * kmat_tasks[..., tidx, l, None])
-        pcmean = torch.cat(pieces, -1).sum(-1)
+        pcmean = comm.all_sum(torch.cat(pieces, -1).sum(-1), self._seq_group)
         return pcmean[..., 0] if inttask else pcmean
 
     def _cubature_quad_term(self, solver, taskL, taskR):

@@ -9,7 +9,12 @@ is the adjoint collective:
   summed over the group (``models/abstract._make_loss_fn``);
 * :func:`all_amax` (an ``all_gather``, then ``amax``): the gather's backward
   reduce-scatters the gradient;
-* :func:`reduce_scatter` (sum): its backward all-gathers the gradient.
+* :func:`reduce_scatter` (sum): its backward all-gathers the gradient;
+* :func:`all_to_all` (pieces of the last axis to each rank): its backward
+  is the inverse all-to-all;
+* :func:`shared_input` (the identity): its backward takes the group mean of
+  the ranks' gradients, for an input that every rank feeds into the same
+  replicated computation.
 
 They are written here rather than taken from ``torch.distributed.nn``
 because their outputs must be fresh tensors (the centring adds the DC term
@@ -84,6 +89,42 @@ class _ReduceScatter(torch.autograd.Function):
         return torch.stack(_gather(g, ctx.group)), None
 
 
+class _AllToAll(torch.autograd.Function):
+    """(K, ...) on every rank, cut along dim 0 into ``in_splits[c]`` rows for
+    rank c -> the rows every rank sent here, in rank order (``out_splits[c]``
+    from rank c)."""
+
+    @staticmethod
+    def forward(ctx, x, group, in_splits, out_splits):
+        ctx.group, ctx.splits = group, (in_splits, out_splits)
+        return _all_to_all(x, group, in_splits, out_splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_splits, out_splits = ctx.splits
+        return _all_to_all(g, ctx.group, out_splits, in_splits), None, None, None
+
+
+def _all_to_all(x, group, in_splits, out_splits):
+    x = x.contiguous()
+    out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, list(out_splits), list(in_splits), group=group)
+    return out
+
+
+class _SharedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / size(ctx.group), None
+
+
 def _real_io(fn, x, group):
     if x.is_complex():
         return torch.view_as_complex(fn(torch.view_as_real(x), group))
@@ -110,6 +151,33 @@ def reduce_scatter(contribs: torch.Tensor, group) -> torch.Tensor:
     """``contribs`` (D, ...): this rank's contribution to every rank's block.
     Returns ``sum over ranks c of contribs_c[j]`` on rank j, differentiable."""
     return _real_io(_ReduceScatter.apply, contribs, group)
+
+
+def all_to_all(x: torch.Tensor, group, in_splits, out_splits) -> torch.Tensor:
+    """Differentiable all-to-all along the LAST axis: that axis is cut into
+    consecutive pieces of ``in_splits[c]`` entries, piece c goes to rank c,
+    and the result holds the pieces that every rank sent here, in rank order
+    (``out_splits[c]`` entries from rank c).  Its backward is the inverse
+    all-to-all (the splits swapped).  The identity without a group."""
+    if group is None:
+        return x
+    t = x.movedim(-1, 0)
+    if x.is_complex():
+        return torch.view_as_complex(_AllToAll.apply(
+            torch.view_as_real(t), group, tuple(in_splits), tuple(out_splits))).movedim(0, -1)
+    return _AllToAll.apply(t, group, tuple(in_splits), tuple(out_splits)).movedim(0, -1)
+
+
+def shared_input(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, for an input that every rank feeds into the same
+    replicated computation whose sums over the group are :func:`all_sum`'s.
+    Seeded with 1 on every rank, rank c's gradient is then D times its local
+    terms plus the replicated terms; the backward returns their mean over the
+    group, which is the whole gradient, the same on every rank.  The
+    identity without a group."""
+    if group is None:
+        return x
+    return _SharedInput.apply(x, group)
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

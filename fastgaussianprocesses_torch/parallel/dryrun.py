@@ -11,6 +11,7 @@ and returns numpy data.
 import datetime
 import math
 import os
+import pickle
 import queue as _queue
 import shutil
 import tempfile
@@ -82,8 +83,10 @@ def dryrun_multichip(n_devices: int) -> dict:
 # spawning ranks
 # ---------------------------------------------------------------------------
 
-def _child(rank, world, store_path, backend, collective_timeout, fn, args, out):
+def _child(rank, world, store_path, backend, collective_timeout, call_path, out):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         kw = {}
         if backend == "nccl":
             torch.cuda.set_device(rank)
@@ -110,7 +113,10 @@ class SpawnedRanks:
     fails after ``collective_timeout`` seconds, and :meth:`result` kills all
     the processes and raises when one fails or when ``timeout`` seconds have
     passed since the start, so that a mismatched collective cannot hang
-    the caller.  A gloo rank runs torch on one intra-op thread."""
+    the caller.  A gloo rank runs torch on one intra-op thread.  ``fn`` and
+    ``args`` reach the ranks through a file in the temporary directory: a
+    spawned process reads its pipe only once it has imported its modules, so
+    arguments too large for the pipe's buffer would hold up each start."""
 
     def __init__(self, fn, world, args=(), backend=None, timeout=300.0,
                  collective_timeout=60.0):
@@ -121,9 +127,12 @@ class SpawnedRanks:
         self._deadline = time.monotonic() + timeout
         self._timeout = timeout
         self.world = world
+        call_path = os.path.join(self._dir, "call.pkl")
+        with open(call_path, "wb") as f:
+            pickle.dump((fn, args), f)
         self._procs = [ctx.Process(target=_child, daemon=True, args=(
             r, world, os.path.join(self._dir, "store"), backend, collective_timeout,
-            fn, args, self._queue)) for r in range(world)]
+            call_path, self._queue)) for r in range(world)]
         for p in self._procs:
             p.start()
 
@@ -141,12 +150,15 @@ class SpawnedRanks:
         try:
             while len(got) < self.world:
                 left = self._deadline - time.monotonic()
-                if left <= 0:
-                    raise TimeoutError(f"ranks {sorted(set(range(self.world)) - set(got))} "
-                                       f"did not finish within {self._timeout} s")
                 try:
-                    rank, ok, value = self._queue.get(timeout=min(left, 1.0))
+                    # a result already queued counts, even when the caller
+                    # asks for it after the deadline
+                    rank, ok, value = self._queue.get(timeout=min(max(left, 0.0), 1.0))
                 except _queue.Empty:
+                    if left <= 0:
+                        raise TimeoutError(
+                            f"ranks {sorted(set(range(self.world)) - set(got))} did not "
+                            f"finish within {self._timeout} s") from None
                     dead = [r for r, p in enumerate(self._procs)
                             if r not in got and p.exitcode is not None]
                     if dead:
@@ -292,6 +304,164 @@ def _hmc_model(n):
     return gp
 
 
+def all_to_all_check(rank, world, pieces, w, layout):
+    """``comm.all_to_all`` with uneven splits: rank s holds ``pieces[s]``, a
+    list of (2, k) complex arrays for every rank d (k may be 0), sends them
+    and backpropagates ``Re sum(conj(w[d]) y)`` on each rank d.  Returns what
+    arrived and the gradient of the rank's input.  Then ``fs.to_residues``
+    and ``from_residues`` on the rank's blocks of ``layout`` (a list of
+    vectors, each ``r_v n_min`` long; ``rs``), the residues that arrive and
+    the round trip."""
+    from ..linalg import fast_solver as fs
+    from . import comm
+    from .mesh import make_mesh
+
+    group = make_mesh({"seq": world}).get_group("seq")
+    mine = [torch.from_numpy(p) for p in pieces[rank]]
+    x = torch.cat(mine, -1).requires_grad_(True)
+    outs = [pieces[s][rank].shape[-1] for s in range(world)]
+    y = comm.all_to_all(x, group, [p.shape[-1] for p in mine], outs)
+    gx, = torch.autograd.grad((torch.from_numpy(w[rank]).conj() * y).real.sum(), x)
+    vecs, rs = layout
+    blocks = [torch.from_numpy(v).tensor_split(world, -1)[rank] for v in vecs]
+    res = fs.to_residues(blocks, rs, group)
+    back = fs.from_residues(res, rs, group)
+    return {"y": _np(y.detach()), "gx": _np(gx), "residues": [_np(r) for r in res],
+            "roundtrip": [_np(b) for b in back]}
+
+
+SERVE_QUANTITIES = ("coeffs", "post_mean", "post_var", "post_mean_var", "post_var_future",
+                    "post_cov", "post_ci", "post_cubature_mean", "post_cubature_var")
+
+
+def serve(gp, xq, n_future):
+    """Every serving entry point of a fast model at the query points ``xq``
+    (numpy): ``{quantity: array or tuple of arrays}`` for
+    ``SERVE_QUANTITIES``; the covariance of the first 8 points with
+    themselves, the variance also at ``n_future`` points, the credible
+    interval's bounds."""
+    x = torch.from_numpy(xq).to(gp.dtype)
+    pm, pv = gp.post_mean_var(x)
+    ci = gp.post_ci(x)
+    out = {"coeffs": gp.coeffs, "post_mean": gp.post_mean(x), "post_var": gp.post_var(x),
+           "post_mean_var": (pm, pv), "post_var_future": gp.post_var(x, n=n_future),
+           "post_cov": gp.post_cov(x[:8], x[:8]), "post_ci": (ci[3], ci[4]),
+           "post_cubature_mean": gp.post_cubature_mean(),
+           "post_cubature_var": gp.post_cubature_var()}
+    return {k: tuple(_np(t) for t in v) if isinstance(v, tuple) else _np(v)
+            for k, v in out.items()}
+
+
+def seq_serving_checks(rank, world, n, d, xq, n_future):
+    """:func:`serve` under ``use_sequence_sharding`` over ``world`` ranks, for
+    both fast models at n points in d dimensions (``_build_model``)."""
+    from ..models.digital_gp import FastGPDigitalNetB2
+    from ..models.lattice_gp import FastGPLattice
+    from .mesh import make_mesh
+
+    mesh = make_mesh({"seq": world})
+    out = {}
+    for name, cls in (("lattice", FastGPLattice), ("dnb2", FastGPDigitalNetB2)):
+        gp = _build_model(n, d, cls=cls, device="cpu")
+        gp.use_sequence_sharding(mesh)
+        out[name] = serve(gp, xq, n_future)
+    return out
+
+
+def mt_model(cls_name, ns, d):
+    """``tests/test_parallel.py``'s multitask model: ``cls_name`` in d
+    dimensions, seed 7, one task a size in ``ns``, y = sin(sum(x))."""
+    from ..models.digital_gp import FastGPDigitalNetB2
+    from ..models.lattice_gp import FastGPLattice
+
+    cls = {"FastGPLattice": FastGPLattice, "FastGPDigitalNetB2": FastGPDigitalNetB2}[cls_name]
+    tasks = list(range(len(ns)))
+    gp = cls(d, num_tasks=len(ns), seed_for_seq=7, device="cpu")
+    xs = gp.get_x_next_host(list(ns), task=tasks)
+    gp.add_y_next([torch.from_numpy(np.sin(x.sum(1))) for x in xs], task=tasks)
+    return gp
+
+
+def mt_results(gp, xq):
+    """The MLL and its gradients, the GCV and CV losses, and
+    ``post_mean_var`` at ``xq`` for every task."""
+    mll_const = float(gp.n.sum()) * math.log(2 * math.pi)
+    loss, _, grads = gp._make_loss_fn("MLL", None, 1, mll_const, 1)(gp._raw_dict(),
+                                                                  gp._fit_data())
+    others = {m: float(gp._make_loss_fn(m, None, 1, mll_const, 1)(gp._raw_dict(),
+                                                                 gp._fit_data())[0])
+              for m in ("GCV", "CV")}
+    pm, pv = gp.post_mean_var(torch.from_numpy(xq).to(gp.dtype))
+    return {"loss": float(loss), "grads": {k: _np(g) for k, g in grads.items()},
+            "losses": others, "post_mean": _np(pm), "post_var": _np(pv)}
+
+
+def seq_multitask_checks(rank, world, cases, xqs, too_small):
+    """:func:`mt_results` of each ``cases`` entry (``{label: (cls_name, ns,
+    d)}``) at its query points ``xqs[label]`` under a sequence mesh of
+    ``world`` ranks, and the message of the ``ValueError`` that a model
+    whose smallest task does not split over the ranks (``too_small``)
+    raises (None if it raises none)."""
+    from .mesh import make_mesh
+
+    mesh = make_mesh({"seq": world})
+    out = {}
+    for label, case in cases.items():
+        gp = mt_model(*case)
+        gp.use_sequence_sharding(mesh)
+        out[label] = mt_results(gp, xqs[label])
+    gp = mt_model(*too_small)
+    gp.use_sequence_sharding(mesh)
+    try:
+        mt_results(gp, np.full((1, too_small[2]), 0.5))
+        out["too_small"] = None
+    except ValueError as e:
+        out["too_small"] = str(e)
+    return out
+
+
+def hmc_points(sampled0, chains=8, seed=0, spread=0.3):
+    """``chains`` raw points around the start ``sampled0`` (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    return {k: np.asarray(v)[None] + spread * rng.standard_normal((chains,) + np.shape(v))
+            for k, v in sampled0.items()}
+
+
+def log_density_at(lp, points):
+    """A batched log-density's values and gradients at ``points`` (numpy)."""
+    leaves = {k: torch.from_numpy(v).requires_grad_(True) for k, v in points.items()}
+    v = lp(leaves)
+    gs = torch.autograd.grad(v.sum(), list(leaves.values()))
+    return _np(v.detach()), {k: _np(g) for k, g in zip(leaves, gs)}
+
+
+def seq_hmc_check(rank, world, n, seed, num_warmup, num_samples, max_leapfrog):
+    """``_hmc_model(n)`` under a sequence mesh of ``world`` ranks:
+    ``gp_log_density``'s values and gradients for 8 chains at
+    :func:`hmc_points`, ``sample_gp_hyperposterior`` (8 chains, ChEES at most
+    ``max_leapfrog`` steps), and the error of ``chain_sharding`` on top of the
+    sequence mesh, by type."""
+    from ..fit.hmc import gp_log_density, sample_gp_hyperposterior
+    from .mesh import batch_sharding, make_mesh
+
+    gp = _hmc_model(n)
+    gp.use_sequence_sharding(make_mesh({"seq": world}))
+    lp, sampled0 = gp_log_density(gp)
+    value, grads = log_density_at(lp, hmc_points({k: _np(v) for k, v in sampled0.items()}))
+    res, _ = sample_gp_hyperposterior(gp, num_samples=num_samples, num_warmup=num_warmup,
+                                      num_chains=8, seed=seed, max_leapfrog=max_leapfrog)
+    try:
+        sample_gp_hyperposterior(gp, num_samples=1, num_warmup=1, num_chains=8, seed=seed,
+                                 chain_sharding=batch_sharding(make_mesh({"chains": world}),
+                                                               "chains"))
+        two_d = None
+    except NotImplementedError as e:
+        two_d = str(e)
+    return {"value": value, "grads": grads, "log_prob": _np(res.log_prob),
+            "samples": {k: _np(v) for k, v in res.samples.items()},
+            "grad_evals": res.num_grad_evals, "two_d": two_d}
+
+
 def helper_checks(rank, world):
     """``parallel.distributed`` in a group of ``world`` gloo ranks: the
     argument-free ``initialize`` (a no-op once joined), ``global_mesh``,
@@ -310,10 +480,17 @@ def helper_checks(rank, world):
 
 def cpu_checks(rank, world, spec):
     """Every rank body above in one process group (``tests/test_torch_parallel``
-    spawns it once): ``spec`` holds the transforms' inputs and the sizes."""
+    spawns it once): ``spec`` holds the transforms' inputs and the sizes.
+    The helpers come first: their collective latency is timed before the
+    parent's JAX references load the host most."""
+    helpers = helper_checks(rank, world)
     out = {"transforms": transform_checks(rank, world, spec["transforms"]),
            "fleet": fleet_step_check(rank, world, *spec["fleet"]),
            "seq": seq_loss_checks(rank, world, *spec["seq"]),
            "hmc": hmc_check(rank, world, *spec["hmc"]),
-           "helpers": helper_checks(rank, world)}
+           "all_to_all": all_to_all_check(rank, world, *spec["all_to_all"]),
+           "seq_serving": seq_serving_checks(rank, world, *spec["seq_serving"]),
+           "seq_multitask": seq_multitask_checks(rank, world, *spec["seq_multitask"]),
+           "seq_hmc": seq_hmc_check(rank, world, *spec["seq_hmc"]),
+           "helpers": helpers}
     return out

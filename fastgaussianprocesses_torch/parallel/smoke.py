@@ -30,7 +30,21 @@ imports nothing else.
   order, so later draws are compared as distributions);
 * ``collective``: ``measure_collective_overhead`` at 1 and D ranks; with
   ``full``, ``measure_hmc_scaling`` of both HMC configurations and
-  ``dryrun_multichip(D)``.
+  ``dryrun_multichip(D)``;
+* with ``full``, the three paths that run under a sequence mesh, each
+  against rank 0's one-card run of the same model:
+  ``seq_serving``, both flagships (n = 2^20, d = 8): ``post_mean_var`` of
+  ``n_query`` points, ``coeffs`` and the cubature mean and variance, a
+  steady request timed (best of 2) on D cards and on one, profiled on rank 0,
+  and a rank's peak memory; ``seq_multitask``, mt_dnb2 (3 tasks at n =
+  (2^20, 2^19, 2^18), M = 7): the MLL and its gradient (timed on D cards
+  and one, the all-to-alls a step counted) and ``post_mean_var`` of
+  ``n_query_mt`` points a task; ``seq_hmc``, ``hmc_flagship``'s
+  configuration (lattice, d = 8, n = 2^20) and the digital net at that
+  size, sequence-sharded: the log-density and gradient of 8 chains at the
+  start, a whole run's samples/s, acceptance and step size on D cards and
+  one, and every rank's samples equal bit for bit.  K4's launches and the (n, rows) of each are recorded on every path
+  that runs it.
 
 Rank 0 computes every one-card reference on its own card while the other
 ranks wait at their next collective.  Any disagreement raises.  On the CPU
@@ -89,12 +103,14 @@ def _fleet(name, n, dtype, device):
 
 class _Kernels:
     """The launch counters of K1-K4, the plain versions of K1, K2 and K4
-    made to raise (on the card), and the rows of every launch."""
+    made to raise (on the card), the rows of every launch and the launches
+    at each (n, rows)."""
 
     def __init__(self, on_card):
         from ..ops import fwht as tf, perm_fft as tp
         self.tp, self.tf, self.on_card = tp, tf, on_card
         self.rows = {}
+        self.shapes = {}
 
     def __enter__(self):
         self.saved = []
@@ -114,7 +130,10 @@ class _Kernels:
             self.saved.append((m, k, f))
 
             def spy(x, *a, _f=f, _name=name, **kw):
-                self.rows.setdefault(_name, set()).add(x.numel() // x.shape[-1])
+                rows = x.numel() // x.shape[-1]
+                self.rows.setdefault(_name, set()).add(rows)
+                shapes = self.shapes.setdefault(_name, {})
+                shapes[(x.shape[-1], rows)] = shapes.get((x.shape[-1], rows), 0) + 1
                 return _f(x, *a, **kw)
             setattr(m, k, spy)
         return self
@@ -127,6 +146,11 @@ class _Kernels:
         self.tp.reset_launches()
         self.tf.reset_launches()
         self.rows = {}
+        self.shapes = {}
+
+    def k4_shapes(self):
+        """K4's launches since the reset as sorted ``[n, rows, launches]``."""
+        return sorted([n, r, c] for (n, r), c in self.shapes.get("fwht", {}).items())
 
     def counts(self):
         return {**self.tp.launches, **self.tf.launches}
@@ -221,6 +245,19 @@ TOL = {
     # HMC's first iterations against the one-card sampler on the same row
     # blocks: float32 positions after 4 trajectories
     "hmc_first": 1e-5,
+    # the sequence-mesh paths at n = 2^20, float32, relative to the largest
+    # value: the sharded path (the general solver, a reduce-scatter a
+    # transform, an all-reduce a query chunk, all-to-alls for mt_dnb2)
+    # against one card's (the permuted solver for the lattice), each ~10x
+    # the largest error measured on four NVIDIA H100 80GB HBM3 at 700 W
+    # (PERF.md): serving means 1.2e-4, variances 7.8e-6, coefficients
+    # 2.2e-4; mt_dnb2's MLL 6.3e-8 and gradient 5.9e-6; the log-density of
+    # 8 chains 7.3e-7 and its gradient 5.9e-5.  The cubature mean and
+    # variance measured 6e-8 and 0, and are held at 1e-5 and 1e-4
+    "serve_mean32": 1e-3, "serve_var32": 1e-4, "serve_coeffs32": 3e-3,
+    "serve_cmean32": 1e-5, "serve_cvar32": 1e-4,
+    "mt_loss32": 1e-6, "mt_grad32": 1e-4,
+    "hmc_lp32": 1e-5, "hmc_grad32": 1e-3,
 }
 
 
@@ -410,6 +447,265 @@ def transforms_check(ctx, n):
     return out
 
 
+def _best_s(fn, reps, dev):
+    """Wall seconds of the best of ``reps`` calls of ``fn``, each ended by a
+    device sync."""
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _served(gp, xq):
+    pm, pv = gp.post_mean_var(xq)
+    return {"post_mean": pm, "post_var": pv, "coeffs": gp.coeffs,
+            "cubature_mean": gp.post_cubature_mean(), "cubature_var": gp.post_cubature_var()}
+
+
+SERVE_TOL = {"post_mean": "serve_mean32", "post_var": "serve_var32", "coeffs": "serve_coeffs32",
+             "cubature_mean": "serve_cmean32", "cubature_var": "serve_cvar32"}
+
+
+def seq_serving_check(ctx, name, n, nq):
+    """Serving under ``use_sequence_sharding`` against the one-card model (see
+    the module docstring)."""
+    dt = ctx.cfg["dtype"]
+    gp = _model(name, n, D_MAIN, dt, ctx.dev)
+    xq = torch.as_tensor(np.random.default_rng(11).uniform(size=(nq, D_MAIN)), dtype=dt,
+                         device=ctx.dev)
+    K = ctx.kernels
+    out = {}
+    ref = None
+
+    def request():
+        gp.post_mean_var(xq)
+    if ctx.rank == 0:
+        with K:
+            ref = _served(gp, xq)
+            out["one_card_s"] = _best_s(request, 2, ctx.dev)
+    dist.barrier()
+    gp.use_sequence_sharding(make_mesh({"seq": ctx.world}))
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    with K:
+        K.reset()
+        got = _served(gp, xq)
+        _sync(ctx.dev)
+        out["launches"], out["k4_shapes"] = K.counts(), K.k4_shapes()
+        out["peak_gib"] = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                           if ctx.on_card else None)
+        out["request_s"] = _best_s(request, 2, ctx.dev)
+        if ctx.on_card:  # every rank: the request's collectives need them all
+            out["profile"] = _profile(request, 1, out["request_s"] * 1e3)
+    if ctx.on_card and name == "dnb2" and out["launches"]["fwht"] == 0:
+        raise AssertionError(f"seq_serving {name}: K4 never launched")
+    bad = [k for k, v in got.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"seq_serving {name}: non-finite {bad}")
+    if ctx.rank == 0:
+        out["errs"] = {k: _rel(got[k], ref[k]) for k in SERVE_TOL}
+        for k, e in out["errs"].items():
+            _check(f"seq_serving {name} {k}", e, TOL[SERVE_TOL[k]])
+    dist.barrier()
+    gp.use_sequence_sharding(None)
+    ctx.log(f"  seq_serving {name} n = {n}, {nq} points, on {ctx.world} card(s): a request "
+            f"{out['request_s']:.3f} s"
+            + (f" against {out['one_card_s']:.3f} s on one card; off one card "
+               f"{ {k: float(f'{e:.2e}') for k, e in out['errs'].items()} }"
+               if ctx.rank == 0 else "")
+            + f"; launches {out['launches']}, K4 (n, rows) {out['k4_shapes']}; peak "
+            + (f"{out['peak_gib']:.3f} GiB a rank" if out["peak_gib"] is not None else "n/a")
+            + (f"; profile {out['profile']}" if "profile" in out else ""))
+    return out
+
+
+def _mt_model(ns, dtype, device):
+    """``chip_smoke.mt_model`` of mt_dnb2: ``examples/multitask.py``'s
+    multi-fidelity setup at d = 8 (task l observes ``_f`` shifted by
+    ``0.1 l cos(2 pi x_2)``), the noise at 1e-8, the lengthscales and the
+    task kernel from seed 7 (``chip_smoke._seeded_raw``)."""
+    from ..convert import load_jax_params
+
+    T = len(ns)
+    tasks = list(range(T))
+    gp = _cls("dnb2")(D_MAIN, num_tasks=T, seed_for_seq=7, alpha=2, dtype=dtype, device=device)
+    xs = gp.get_x_next_host(list(ns), task=tasks)
+    gp.add_y_next([torch.as_tensor(_f(x) + 0.1 * l * np.cos(2 * np.pi * x[:, 2]))
+                   for l, x in enumerate(xs)], task=tasks)
+    rng = np.random.default_rng(7)
+    raw = {k: p.raw.detach().cpu().double().numpy() for k, p in gp.params.items()}
+    raw["lengthscales"] = rng.uniform(-0.5, 0.5, raw["lengthscales"].shape)
+    raw["noise"] = np.full(raw["noise"].shape, math.log(1e-8))
+    raw["factor_task_kernel"] = rng.uniform(0.5, 1.5, raw["factor_task_kernel"].shape)
+    raw["noise_task_kernel"] = np.log(rng.uniform(0.05, 0.2, raw["noise_task_kernel"].shape))
+    load_jax_params(gp, raw)
+    return gp
+
+
+class _CountAllToAll:
+    """Counts ``comm``'s all-to-alls (forward and backward) while entered."""
+
+    def __enter__(self):
+        self.count, self.saved = 0, comm._all_to_all
+
+        def counted(*a, **k):
+            self.count += 1
+            return self.saved(*a, **k)
+        comm._all_to_all = counted
+        return self
+
+    def __exit__(self, *exc):
+        comm._all_to_all = self.saved
+
+
+def seq_multitask_check(ctx, ns, nq):
+    """mt_dnb2 under a sequence mesh against the one-card model (see the
+    module docstring)."""
+    dt = ctx.cfg["dtype"]
+    gp = _mt_model(ns, dt, ctx.dev)
+    T = len(ns)
+    xq = torch.as_tensor(np.random.default_rng(12).uniform(size=(nq, D_MAIN)), dtype=dt,
+                         device=ctx.dev)
+    K = ctx.kernels
+    out = {}
+    trained = [k for k, p in gp.params.items() if p.trainable]
+
+    def served():
+        pm, pv = gp.post_mean_var(xq)
+        return {"post_mean": pm, "post_var": pv}
+    ref = None
+    if ctx.rank == 0:
+        lg, data = _loss_grad(gp, "MLL")
+        with K:
+            loss, _, grads = lg(gp._raw_dict(), data)
+            ref = {"loss": loss, **{k: grads[k] for k in trained}, **served()}
+            out["one_card_step_ms"] = _best_ms(lambda: lg(gp._raw_dict(), data), 4, ctx.dev)
+    dist.barrier()
+    gp.use_sequence_sharding(make_mesh({"seq": ctx.world}))
+    lg, data = _loss_grad(gp, "MLL")
+    with K, _CountAllToAll() as a2a:
+        K.reset()
+        loss, _, grads = lg(gp._raw_dict(), data)
+        _sync(ctx.dev)
+        out["all_to_all_a_step"] = a2a.count
+        out["step_launches"], out["step_k4_shapes"] = K.counts(), K.k4_shapes()
+        out["step_ms"] = _best_ms(lambda: lg(gp._raw_dict(), data), 4, ctx.dev)
+        K.reset()
+        got = {"loss": loss, **{k: grads[k] for k in trained}, **served()}
+        _sync(ctx.dev)
+        out["serve_launches"], out["serve_k4_shapes"] = K.counts(), K.k4_shapes()
+    if ctx.on_card and (out["step_launches"]["fwht"] == 0 or out["serve_launches"]["fwht"] == 0):
+        raise AssertionError(f"seq_multitask: K4 launches {out['step_launches']} a step, "
+                             f"{out['serve_launches']} serving")
+    if ctx.rank == 0:
+        errs = {"loss": _check("seq_multitask loss", _rel(got["loss"], ref["loss"]),
+                               TOL["mt_loss32"])}
+        for k in trained:
+            errs[k] = _check(f"seq_multitask gradient {k}", _rel(got[k], ref[k]),
+                             TOL["mt_grad32"])
+        errs["post_mean"] = _check("seq_multitask post_mean",
+                                   _rel(got["post_mean"], ref["post_mean"]), TOL["serve_mean32"])
+        errs["post_var"] = _check("seq_multitask post_var",
+                                  _rel(got["post_var"], ref["post_var"]), TOL["serve_var32"])
+        out["errs"] = errs
+    dist.barrier()
+    gp.use_sequence_sharding(None)
+    ctx.log(f"  seq_multitask mt_dnb2 n = {ns} ({T} tasks), {nq} points a task, on {ctx.world} "
+            f"card(s): MLL and gradient {out['step_ms']:.3f} ms"
+            + (f" against {out['one_card_step_ms']:.3f} ms on one card; off one card "
+               f"{ {k: float(f'{e:.2e}') for k, e in out['errs'].items()} }"
+               if ctx.rank == 0 else "")
+            + f"; {out['all_to_all_a_step']} all-to-alls a step; K4 (n, rows) a step "
+            f"{out['step_k4_shapes']}, serving {out['serve_k4_shapes']}")
+    return out
+
+
+def seq_hmc_check(ctx, name, n, kw):
+    """The hyperposterior of a sequence-sharded model against one card's (see
+    the module docstring)."""
+    from ..fit.hmc import gp_log_density, sample_gp_hyperposterior
+    from .dryrun import hmc_points
+
+    dt = ctx.cfg["dtype"]
+    gp = _model(name, n, D_MAIN, dt, ctx.dev)
+    C = kw["num_chains"]
+    K = ctx.kernels
+
+    def at_points(lp, sampled0):
+        pts = hmc_points({k: v.detach().cpu().double().numpy() for k, v in sampled0.items()}, C)
+        leaves = {k: torch.as_tensor(v, dtype=dt, device=ctx.dev).requires_grad_(True)
+                  for k, v in pts.items()}
+        value = lp(leaves)
+        grads = torch.autograd.grad(value.sum(), list(leaves.values()))
+        return {"value": value.detach(), **dict(zip(leaves, grads))}
+
+    def run():
+        t0 = time.perf_counter()
+        res, _ = sample_gp_hyperposterior(gp, **kw)
+        _sync(ctx.dev)
+        return res, time.perf_counter() - t0
+    out = {}
+    ref = None
+    if ctx.rank == 0:
+        with K:
+            ref = at_points(*gp_log_density(gp))
+            res1, wall1 = run()
+        out["one_card"] = {"samples_per_s": kw["num_samples"] * C / wall1,
+                           "accept": float(res1.accept_rate),
+                           "step_size": float(res1.step_size)}
+    dist.barrier()
+    gp.use_sequence_sharding(make_mesh({"seq": ctx.world}))
+    with K:
+        got = at_points(*gp_log_density(gp))
+        K.reset()
+        res, wall = run()
+        out["launches"], out["k4_shapes"] = K.counts(), K.k4_shapes()
+    if ctx.on_card and name == "dnb2" and out["launches"]["fwht"] < 2 * res.num_grad_evals:
+        raise AssertionError(f"seq_hmc {name}: K4 launched {out['launches']['fwht']} times "
+                             f"for {res.num_grad_evals} gradients")
+    if not bool(torch.isfinite(res.log_prob).all()):
+        raise AssertionError(f"seq_hmc {name}: non-finite log_prob")
+    # every rank's samples, log-densities and gradient count, compared bit for bit
+    mine = torch.cat([res.log_prob.reshape(-1)] + [v.reshape(-1) for _, v in
+                                                   sorted(res.samples.items())]
+                     + [torch.tensor([float(res.num_grad_evals)], dtype=dt, device=ctx.dev)])
+    group = make_mesh({"seq": ctx.world}).get_group("seq") if ctx.world > 1 else None
+    every = comm.all_gather_cat(mine[None], group, 0)
+    out["ranks_bitwise_equal"] = bool((every == every[:1]).all())
+    if not out["ranks_bitwise_equal"]:
+        raise AssertionError(f"seq_hmc {name}: the ranks' samples differ")
+    out.update(grads=res.num_grad_evals, wall_s=wall,
+               samples_per_s=kw["num_samples"] * C / wall, accept=float(res.accept_rate),
+               step_size=float(res.step_size), mean_leapfrog=res.mean_leapfrog)
+    if ctx.rank == 0:
+        out["errs"] = {"value": _check(f"seq_hmc {name} log-density",
+                                       _rel(got["value"], ref["value"]), TOL["hmc_lp32"])}
+        for k in ("scale", "lengthscales"):
+            out["errs"][k] = _check(f"seq_hmc {name} gradient {k}", _rel(got[k], ref[k]),
+                                    TOL["hmc_grad32"])
+        # the acceptance and step size are reported beside one card's, not
+        # held: at this unfitted start the float32 surface keeps both runs'
+        # steps at 1e-6-1e-4, and 20 warmup iterations of dual averaging on
+        # runs that part at the first rounding leave them 3x apart (measured)
+    dist.barrier()
+    gp.use_sequence_sharding(None)
+    ctx.log(f"  seq_hmc {name} n = {n}, {C} chains, {kw['num_warmup']} + {kw['num_samples']} "
+            f"on {ctx.world} card(s): {out['grads']} gradients, {wall:.2f} s, "
+            f"{out['samples_per_s']:.2f} samples/s, accept {out['accept']:.3f}, step size "
+            f"{out['step_size']:.4g}"
+            + (f"; one card {out['one_card']}; log-density and gradient off one card "
+               f"{ {k: float(f'{e:.2e}') for k, e in out['errs'].items()} }"
+               if ctx.rank == 0 else "")
+            + f"; ranks bit for bit equal; launches {out['launches']}, K4 (n, rows) "
+            f"{out['k4_shapes']}")
+    return out
+
+
 def _broadcast_raw(gp):
     """Rank 0's raw parameters on every rank (so that every rank samples the
     same model after a fit)."""
@@ -525,7 +821,8 @@ def body(rank, world, cfg):
     """The parallel phase on ``world`` ranks (see the module docstring);
     ``cfg``: ``full`` (the four-card set), ``dtype``, and the sizes
     ``n_fleet``, ``n_seq``, ``n_seq64``, ``n_mem``, ``n_hmc``, ``n_flag``,
-    ``hmc_lattice`` and ``hmc_flagship`` (sampler options)."""
+    ``n_query``, ``mt_ns``, ``n_query_mt``, ``hmc_lattice`` and
+    ``hmc_flagship`` (sampler options)."""
     from . import distributed as D
     from .dryrun import dryrun_multichip
 
@@ -533,6 +830,13 @@ def body(rank, world, cfg):
     full = cfg["full"]
     res = {"cards": world}
     t0 = time.perf_counter()
+    if full:
+        res["seq_serving"] = {name: seq_serving_check(ctx, name, cfg["n_seq"], cfg["n_query"])
+                              for name in ("lattice", "dnb2")}
+        res["seq_multitask"] = seq_multitask_check(ctx, cfg["mt_ns"], cfg["n_query_mt"])
+        res["seq_hmc"] = {name: seq_hmc_check(ctx, name, cfg["n_flag"], cfg["hmc_flagship"])
+                          for name in ("lattice", "dnb2")}
+        res["seq_paths_s"] = time.perf_counter() - t0
     res["fleet"] = {name: fleet_check(ctx, name) for name in ("lattice", "dnb2")}
     names = ("lattice", "dnb2") if full else ("dnb2",)
     metrics = ("MLL", "GCV", "CV") if full else ("MLL",)
@@ -570,5 +874,6 @@ def body(rank, world, cfg):
                 ctx.log(f"  measure_hmc_scaling {label}: {res['scaling'][label]}")
             res["dryrun"] = dryrun_multichip(world)
             ctx.log(f"  dryrun_multichip({world}): {res['dryrun']}")
+
     res["seconds"] = time.perf_counter() - t0
     return res
