@@ -208,7 +208,13 @@ gradient timed on 4 cards and 1, the all-to-alls a step counted;
 ``post_mean_var`` of 1024 points a task) and the hyperposterior of
 ``hmc_flagship``'s configuration on the lattice and the digital net (the
 log-density and gradient of 8 chains, samples/s on 4 cards and 1, the
-ranks' samples bit for bit equal).  Then, on card 0, K1-K4 at the shapes a
+ranks' samples bit for bit equal), each model's hyperposterior again on the
+2 x 2 mesh ``{"chains": 2, "seq": 2}`` (``chain_sharding`` over
+``"chains"``: the digital net's K4 at least twice a gradient on (4, 2^19)
+blocks, the start against the same one-card reference, the four ranks'
+samples bit for bit equal), and the fleet step of both models on ``{"batch":
+2, "seq": 2}``, the fleet sequence-sharded, against the one-card step and
+timed beside the 1-D step.  Then, on card 0, K1-K4 at the shapes a
 rank runs, those K4 met on the three paths included, through phase 3's own
 checks and timings (``phase_kernels`` / ``phase_fwht`` with ``base=False``).  It prints one
 ``{"parallel": ...}`` line, the ``nvidia-smi`` line, a ``{"kernels":
@@ -2188,7 +2194,11 @@ def multichip(torch):
         ("K4 fwht.fwht (sequence-sharded mt_dnb2 serving, a rank's blocks)",
          out["seq_multitask"]["serve_k4_shapes"]),
         ("K4 fwht.fwht (sequence-sharded hmc_flagship digital net, 8 chains' rank blocks)",
-         out["seq_hmc"]["dnb2"]["k4_shapes"])]
+         out["seq_hmc"]["dnb2"]["k4_shapes"]),
+        ("K4 fwht.fwht (hmc_flagship digital net on the 2 x 2 mesh of chains and sequence, "
+         "a rank's 4 chains' blocks)", out["seq_hmc"]["dnb2"]["two_d"]["k4_shapes"]),
+        ("K4 fwht.fwht (sharded fleet step, digital net, on the 2 x 2 mesh of batch and "
+         "sequence, a rank's members' blocks)", out["fleet_2d"]["dnb2"]["k4_shapes"])]
     seq_shapes = sorted({(n, R) for _, shapes in seq_roles for n, R, _ in shapes})
     log("K1-K4 at a rank's shapes, on card 0, as phase 3 holds and times them")
     rows = phase_kernels(torch, tp, tf,

@@ -28,7 +28,11 @@ What differs, by design:
   inputs (one ``all_gather`` an iteration, two with ChEES) and reduce them
   in the unsharded order, so that a sharded run reproduces the unsharded run
   on the same seed bit for bit where the log-density is row-independent;
-  every rank returns the whole result.
+  every rank returns the whole result.  On a sequence-sharded model the
+  chains axis and the model's sequence axis are two axes of one mesh (a 2-D
+  mesh): rank (c, s) runs chains ``[c C / Dc, (c + 1) C / Dc)`` as rows of
+  its sequence block s, the log-density's sums run over the sequence group
+  and the gathers over the chains group.
 * **The leapfrog count is fetched** once an iteration (ChEES's
   ``clip(ceil(t / eps), 1, Lmax)`` is data-dependent), and each leapfrog
   step evaluates the gradient once: the JAX body's first evaluation repeats
@@ -464,7 +468,10 @@ def gp_log_density(model, include=("scale", "lengthscales"), prior_std=3.0):
     holds the whole gradient, the same on every rank.  So every rank makes
     the same accept decisions and leapfrog counts, and issues the same
     collectives.  Every rank of the mesh calls the sampler with the same
-    arguments."""
+    arguments.  On a 2-D mesh of chains and sequence
+    (``sample_gp_hyperposterior(chain_sharding=...)``) a rank is given its
+    chain block's rows; the sums and the mean run over the sequence group
+    alone, so the rank holds its chains' whole values and gradients."""
     group = model._seq_group
     model._warm_for_fit()
     d_out = int(np.prod(model.shape_batch)) if model.shape_batch else 1
@@ -515,14 +522,28 @@ def sample_gp_hyperposterior(model, num_samples=500, num_warmup=500,
     with ``trajectory_adapt="fixed"``.
 
     A sequence-sharded model (``use_sequence_sharding``) samples with all
-    chains on every rank of its mesh (see :func:`gp_log_density`);
-    ``chain_sharding`` on top of it, a 2-D mesh of chains and sequence,
-    raises ``NotImplementedError``.
+    chains on every rank of its mesh (see :func:`gp_log_density`).  With
+    ``chain_sharding`` on top of it, the chains and the sequence are two
+    distinct axes of the model's mesh, a 2-D mesh::
+
+        mesh = make_mesh({"chains": 2, "seq": 2})
+        model.use_sequence_sharding(mesh, "seq")
+        sample_gp_hyperposterior(model, chain_sharding=batch_sharding(mesh, "chains"))
+
+    Rank (c, s) then samples chains ``[c C / Dc, (c + 1) C / Dc)`` as rows
+    of its sequence block s: the log-density's sums and ``shared_input``'s
+    mean run over the sequence group, ``hmc``'s gathers over the chains
+    group.  A rank holds the same values of its chains as the rest of its
+    sequence group, so every rank makes the same decisions, issues the same
+    collectives on both groups in the same order, and returns the whole
+    result.  A ``chain_sharding`` on another mesh, or on the sequence axis
+    itself, raises ``ValueError``.
     """
-    if chain_sharding is not None and model._seq_mesh is not None:
-        raise NotImplementedError("chain_sharding of a sequence-sharded model (a 2-D mesh of "
-                                  "chains and sequence) is not supported: shard either the "
-                                  "chains or the sequence")
+    if chain_sharding is not None and model._seq_mesh is not None and (
+            chain_sharding.mesh != model._seq_mesh or chain_sharding.axis == model._seq_axis):
+        raise ValueError("the chains and the sequence must be two axes of one mesh: "
+                         "chain_sharding must be batch_sharding(mesh, axis) on the mesh of "
+                         "use_sequence_sharding(mesh, seq_axis), with axis != seq_axis")
     if target_accept is None:
         target_accept = 0.9 if model.dtype == torch.float64 else 0.8
     logprob, sampled0 = gp_log_density(model, include=include, prior_std=prior_std)

@@ -217,26 +217,54 @@ def transform_checks(rank, world, inputs):
     return out
 
 
-def fleet_step_check(rank, world, B, n, d, seed):
-    """One step of ``make_sharded_fit_step`` on a lattice fleet of B members
-    (``tests/test_parallel.py``'s): the loss and the raw parameters after the
-    step, the members' rows gathered."""
+FAST_MODELS = {"lattice": "FastGPLattice", "dnb2": "FastGPDigitalNetB2"}
+
+
+def _fast_cls(cls_name):
+    from ..models.digital_gp import FastGPDigitalNetB2
     from ..models.lattice_gp import FastGPLattice
+    return {"FastGPLattice": FastGPLattice, "FastGPDigitalNetB2": FastGPDigitalNetB2}[cls_name]
+
+
+def fleet_model(cls_name, B, n, d, seed):
+    """``tests/test_parallel.py``'s fleet: B members of ``cls_name`` over
+    shared points, each with its own lengthscales and scale, member b
+    observing ``(b + 1) sin(2 pi x_0)``."""
+    gp = _fast_cls(cls_name)(d, seed_for_seq=seed, shape_batch=(B,), shape_lengthscales=(B, d),
+                             shape_scale=(B, 1), device="cpu")
+    x = gp.get_x_next(n)
+    gp.add_y_next(torch.stack([torch.sin(2 * math.pi * x[:, 0]) * (b + 1) for b in range(B)]))
+    return gp
+
+
+def fleet_step_check(rank, world, B, n, d, seed, cls_name="FastGPLattice", axes=None):
+    """One step of ``make_sharded_fit_step`` on :func:`fleet_model`: over the
+    mesh ``axes`` (default ``{"batch": world}``), the fleet sequence-sharded
+    over the mesh's ``"seq"`` axis where it has one (a 2-D mesh of batch and
+    sequence).  The loss and the raw parameters after the step, the members'
+    rows gathered; on a 2-D mesh also the message of the ``ValueError`` that
+    the step over the sequence axis itself raises."""
     from . import comm
     from .mesh import make_mesh, make_sharded_fit_step
 
-    gp = FastGPLattice(d, seed_for_seq=seed, shape_batch=(B,), shape_lengthscales=(B, d),
-                       shape_scale=(B, 1), device="cpu")
-    x = gp.get_x_next(n)
-    gp.add_y_next(torch.stack([torch.sin(2 * math.pi * x[:, 0]) * (b + 1) for b in range(B)]))
-    mesh = make_mesh({"batch": world})
+    gp = fleet_model(cls_name, B, n, d, seed)
+    mesh = make_mesh(axes or {"batch": world})
+    out = {}
+    if "seq" in mesh.mesh_dim_names:
+        gp.use_sequence_sharding(mesh, "seq")
+        try:
+            make_sharded_fit_step(gp, mesh, axis="seq")
+            out["same_axis"] = None
+        except ValueError as e:
+            out["same_axis"] = str(e)
     step, raw, opt_state, data = make_sharded_fit_step(gp, mesh)
     loss, raw1, _ = step(raw, opt_state, data)
     group = mesh.get_group("batch")
     full = gp._raw_dict()
-    return {"loss": float(loss),
-            "raw": {k: _np(comm.all_gather_cat(v, group, 0) if v.shape != full[k].shape
-                           else v) for k, v in raw1.items()}}
+    out.update(loss=float(loss),
+               raw={k: _np(comm.all_gather_cat(v, group, 0) if v.shape != full[k].shape
+                           else v) for k, v in raw1.items()})
+    return out
 
 
 def seq_loss_checks(rank, world, n, d, cv_weights):
@@ -296,9 +324,10 @@ def hmc_check(rank, world, n, seed, num_warmup, num_samples):
             "rhat": {k: v["rhat"] for k, v in diag.items()}}
 
 
-def _hmc_model(n):
-    from ..models.lattice_gp import FastGPLattice
-    gp = FastGPLattice(2, seed_for_seq=7, device="cpu")
+def _hmc_model(n, cls_name="FastGPLattice"):
+    """``tests/test_parallel.py``'s HMC model: ``cls_name`` in d = 2, seed 7,
+    y = sin(2 pi x_0)."""
+    gp = _fast_cls(cls_name)(2, seed_for_seq=7, device="cpu")
     x = gp.get_x_next(n)
     gp.add_y_next(torch.sin(2 * math.pi * x[:, 0]))
     return gp
@@ -371,12 +400,8 @@ def seq_serving_checks(rank, world, n, d, xq, n_future):
 def mt_model(cls_name, ns, d):
     """``tests/test_parallel.py``'s multitask model: ``cls_name`` in d
     dimensions, seed 7, one task a size in ``ns``, y = sin(sum(x))."""
-    from ..models.digital_gp import FastGPDigitalNetB2
-    from ..models.lattice_gp import FastGPLattice
-
-    cls = {"FastGPLattice": FastGPLattice, "FastGPDigitalNetB2": FastGPDigitalNetB2}[cls_name]
     tasks = list(range(len(ns)))
-    gp = cls(d, num_tasks=len(ns), seed_for_seq=7, device="cpu")
+    gp = _fast_cls(cls_name)(d, num_tasks=len(ns), seed_for_seq=7, device="cpu")
     xs = gp.get_x_next_host(list(ns), task=tasks)
     gp.add_y_next([torch.from_numpy(np.sin(x.sum(1))) for x in xs], task=tasks)
     return gp
@@ -438,11 +463,10 @@ def log_density_at(lp, points):
 def seq_hmc_check(rank, world, n, seed, num_warmup, num_samples, max_leapfrog):
     """``_hmc_model(n)`` under a sequence mesh of ``world`` ranks:
     ``gp_log_density``'s values and gradients for 8 chains at
-    :func:`hmc_points`, ``sample_gp_hyperposterior`` (8 chains, ChEES at most
-    ``max_leapfrog`` steps), and the error of ``chain_sharding`` on top of the
-    sequence mesh, by type."""
+    :func:`hmc_points` and ``sample_gp_hyperposterior`` (8 chains, ChEES at
+    most ``max_leapfrog`` steps)."""
     from ..fit.hmc import gp_log_density, sample_gp_hyperposterior
-    from .mesh import batch_sharding, make_mesh
+    from .mesh import make_mesh
 
     gp = _hmc_model(n)
     gp.use_sequence_sharding(make_mesh({"seq": world}))
@@ -450,16 +474,60 @@ def seq_hmc_check(rank, world, n, seed, num_warmup, num_samples, max_leapfrog):
     value, grads = log_density_at(lp, hmc_points({k: _np(v) for k, v in sampled0.items()}))
     res, _ = sample_gp_hyperposterior(gp, num_samples=num_samples, num_warmup=num_warmup,
                                       num_chains=8, seed=seed, max_leapfrog=max_leapfrog)
+    return {"value": value, "grads": grads, "log_prob": _np(res.log_prob),
+            "samples": {k: _np(v) for k, v in res.samples.items()},
+            "grad_evals": res.num_grad_evals}
+
+
+def _sampled(res):
+    return {"samples": {k: _np(v) for k, v in res.samples.items()},
+            "log_prob": _np(res.log_prob), "accept_rate": float(res.accept_rate),
+            "step_size": float(res.step_size), "grad_evals": res.num_grad_evals}
+
+
+def seq_hmc_2d_check(rank, world, n, seed, num_warmup, num_samples, max_leapfrog):
+    """The hyperposterior on the 2-D mesh ``{"chains": 2, "seq": world //
+    2}``, for both models of :data:`FAST_MODELS` (``_hmc_model(n, cls)``
+    sequence-sharded over ``"seq"``): ``gp_log_density``'s values and
+    gradients at :func:`hmc_points`, each rank evaluating its chain block's
+    rows, gathered over the chains group; ``sample_gp_hyperposterior``
+    with ``chain_sharding`` on the ``"chains"`` axis (8 chains, ChEES at
+    most ``max_leapfrog`` steps) and, on the same seed, the same mesh's
+    sequence-only run (all 8 chains on each sequence group).  Then the
+    message of the ``ValueError`` that ``chain_sharding`` on another mesh
+    raises (two 1-D meshes over the same ranks)."""
+    from ..fit.hmc import gp_log_density, sample_gp_hyperposterior
+    from . import comm
+    from .mesh import batch_sharding, make_mesh
+
+    mesh = make_mesh({"chains": 2, "seq": world // 2})
+    sharding = batch_sharding(mesh, "chains")
+    kw = dict(num_samples=num_samples, num_warmup=num_warmup, num_chains=8, seed=seed,
+              max_leapfrog=max_leapfrog)
+    out = {}
+    for name, cls_name in FAST_MODELS.items():
+        gp = _hmc_model(n, cls_name)
+        gp.use_sequence_sharding(mesh, "seq")
+        lp, sampled0 = gp_log_density(gp)
+        pts = hmc_points({k: _np(v) for k, v in sampled0.items()})
+        value, grads = log_density_at(lp, {k: _np(sharding.block(torch.from_numpy(v)))
+                                           for k, v in pts.items()})
+        every = {k: _np(comm.all_gather_cat(torch.from_numpy(v), sharding.group, 0))
+                 for k, v in (("value", value), *grads.items())}
+        out[name] = {"value": every.pop("value"), "grads": every}
+        res2, _ = sample_gp_hyperposterior(gp, chain_sharding=sharding, **kw)
+        res1, _ = sample_gp_hyperposterior(gp, **kw)
+        out[name].update(two_d=_sampled(res2), seq_only=_sampled(res1))
+    gp = _hmc_model(n)
+    gp.use_sequence_sharding(make_mesh({"seq": world}))
     try:
         sample_gp_hyperposterior(gp, num_samples=1, num_warmup=1, num_chains=8, seed=seed,
                                  chain_sharding=batch_sharding(make_mesh({"chains": world}),
                                                                "chains"))
-        two_d = None
-    except NotImplementedError as e:
-        two_d = str(e)
-    return {"value": value, "grads": grads, "log_prob": _np(res.log_prob),
-            "samples": {k: _np(v) for k, v in res.samples.items()},
-            "grad_evals": res.num_grad_evals, "two_d": two_d}
+        out["mismatched"] = None
+    except ValueError as e:
+        out["mismatched"] = str(e)
+    return out
 
 
 def helper_checks(rank, world):
@@ -492,5 +560,9 @@ def cpu_checks(rank, world, spec):
            "seq_serving": seq_serving_checks(rank, world, *spec["seq_serving"]),
            "seq_multitask": seq_multitask_checks(rank, world, *spec["seq_multitask"]),
            "seq_hmc": seq_hmc_check(rank, world, *spec["seq_hmc"]),
+           "seq_hmc_2d": seq_hmc_2d_check(rank, world, *spec["seq_hmc"]),
+           "fleet_2d": {name: fleet_step_check(rank, world, *spec["fleet"], cls_name,
+                                               {"batch": 2, "seq": world // 2})
+                        for name, cls_name in FAST_MODELS.items()},
            "helpers": helpers}
     return out

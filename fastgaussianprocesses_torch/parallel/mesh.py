@@ -10,8 +10,9 @@ the collectives, the code here says where each one goes (``parallel/comm``):
 * ``batch``  -- data parallelism over the members of a ``shape_batch``
   fleet: every rank fits its own members, and only the gradients of the
   replicated parameters and the loss's value cross ranks
-  (:func:`make_sharded_fit_step`);
-* ``chains`` -- HMC chains (``fit/hmc.hmc(chain_sharding=...)``);
+  (:func:`make_sharded_fit_step`), also beside ``seq`` in a 2-D mesh;
+* ``chains`` -- HMC chains (``fit/hmc.hmc(chain_sharding=...)``), also
+  beside ``seq`` in a 2-D mesh (``sample_gp_hyperposterior``);
 * ``seq``    -- the transform axis n (``use_sequence_sharding`` on the fast
   models): rank c holds points ``[c L, (c + 1) L)``, L = n / D, and the
   transforms below return its block of the output, one ``reduce_scatter`` a
@@ -153,11 +154,25 @@ def make_sharded_fit_step(model, mesh, axis: str = "batch", loss_metric: str = "
     are summed over the group, and the loss's value is all-reduced only to
     report it.  Returns ``(step, raw, opt_state, data)`` with
     ``step(raw, opt_state, data) -> (loss, raw, opt_state)``.
+
+    A sequence-sharded fleet (``use_sequence_sharding(mesh, "seq")`` on the
+    same ``mesh``, e.g. ``make_mesh({"batch": 2, "seq": 2})``) runs on a 2-D
+    mesh: rank (b, s) holds batch block b's members on sequence block s.
+    The loss function's sums are all-reduced over the sequence group, which
+    also sums every gradient once (``_make_loss_fn``), so a rank's loss
+    and gradients are its batch block's whole ones; the step then sums the
+    shared parameters' gradients and the loss over the batch group alone,
+    and ``mll_const`` enters on batch block 0.  A sequence mesh other than
+    ``mesh``, or one whose sequence axis is ``axis``, raises ``ValueError``.
     """
     from ..fit.rprop import rprop_init, rprop_update
 
     if not model.shape_batch:
         raise ValueError("the sharded fit step needs a shape_batch fleet")
+    if model._seq_mesh is not None and (model._seq_mesh != mesh or model._seq_axis == axis):
+        raise ValueError("the batch and the sequence must be two axes of one mesh: the "
+                         f"fleet's sequence mesh must be the step's, with its sequence axis "
+                         f"{model._seq_axis!r} other than the batch axis {axis!r}")
     B, nb = model.shape_batch[0], len(model.shape_batch)
     sh = batch_sharding(mesh, axis)
     D, group = sh.size, sh.group

@@ -12,7 +12,11 @@ imports nothing else.
   against the same model's one-card step on rank 0, the kernels launched
   every step on B / D rows (K1 and, as its backward, K2; or K4 twice), the
   step's wall time (chains of 16 steps, best of 3) beside the one-card
-  step's, and a profile of it (device busy share, launches a step);
+  step's, and a profile of it (device busy share, launches a step); with
+  ``full`` on four or more ranks the same on the 2-D mesh ``{"batch": 2,
+  "seq": D / 2}``, the fleet sequence-sharded (K4 at least twice a step on
+  the digital net's (B / 2, n / (D / 2)) blocks), against the one-card
+  step;
 * ``seq``: ``use_sequence_sharding`` on ``bench.py``'s flagship (d = 8,
   seed 7, alpha 2, n = 2^20, float32): the loss and gradient of each
   metric against the one-card model's, K4 launched for the digital net,
@@ -43,8 +47,12 @@ imports nothing else.
   configuration (lattice, d = 8, n = 2^20) and the digital net at that
   size, sequence-sharded: the log-density and gradient of 8 chains at the
   start, a whole run's samples/s, acceptance and step size on D cards and
-  one, and every rank's samples equal bit for bit.  K4's launches and the (n, rows) of each are recorded on every path
-  that runs it.
+  one, and every rank's samples equal bit for bit; then the same on the 2-D
+  mesh ``{"chains": 2, "seq": D / 2}`` (``chain_sharding`` over
+  ``"chains"``; the digital net launches K4 at least twice a gradient, on
+  (C / 2, n / (D / 2)) blocks), against the same one-card reference.  K4's
+  launches and the (n, rows) of each are recorded on every path that runs
+  it.
 
 Rank 0 computes every one-card reference on its own card while the other
 ranks wait at their next collective.  Any disagreement raises.  On the CPU
@@ -60,7 +68,7 @@ import torch
 import torch.distributed as dist
 
 from . import comm
-from .mesh import batch_sharding, make_mesh, make_sharded_fit_step
+from .mesh import axis_size, batch_sharding, make_mesh, make_sharded_fit_step
 
 D_MAIN = 8
 C_HMC = 8
@@ -176,23 +184,45 @@ def _best_ms(fn, steps, dev):
     return best
 
 
+def _dev_us(e):
+    """Device time of a profiler event of a CUDA kernel (the attribute's name
+    varies by release), 0 for anything else."""
+    if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        return 0.0
+    return float(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+
+
 def _profile(fn, steps, wall_ms):
     """Device ms and kernel launches a step under ``torch.profiler`` (CUDA
     activity only), and the device's busy share of the unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            return 0.0
-        return float(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    evs = [(dev_us(e), e.count) for e in prof.key_averages()]
+    evs = [(_dev_us(e), e.count) for e in prof.key_averages()]
     ms = sum(t for t, _ in evs) / 1e3 / steps
     return {"device_ms": ms, "launches": sum(c for t, c in evs if t > 0) / steps,
             "busy": ms / wall_ms}
+
+
+def _profile_grads(run, wall_ms_a_grad):
+    """A sampler run (``run() -> (HMCResult, wall)``) under ``torch.profiler``:
+    its device ms and kernel launches a gradient, NCCL's kernels (which spin
+    while they wait for the other ranks) apart from the rest, and the rest's
+    share of ``wall_ms_a_grad``, an unprofiled run's wall a gradient."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, _ = run()
+    evs = [(e.key, _dev_us(e), e.count) for e in prof.key_averages()]
+    g = res.num_grad_evals
+    nccl = sum(t for k, t, _ in evs if "nccl" in k.lower()) / 1e3 / g
+    compute = sum(t for _, t, _ in evs) / 1e3 / g - nccl
+    return {"grads": g, "compute_ms": compute, "nccl_ms": nccl,
+            "launches": sum(c for _, t, c in evs if t > 0) / g,
+            "compute_busy": compute / wall_ms_a_grad}
 
 
 def _maxabs(t):
@@ -261,14 +291,19 @@ TOL = {
 }
 
 
-def fleet_check(ctx, name):
-    """The data-parallel fit step of a fleet against the one-card step."""
+def fleet_check(ctx, name, axes=None):
+    """The data-parallel fit step of a fleet against the one-card step, over
+    ``{"batch": D}`` or the mesh ``axes`` (the 2-D ``{"batch": 2, "seq": D /
+    2}``, the fleet sequence-sharded over ``"seq"``)."""
     from ..fit.rprop import rprop_init, rprop_update
 
     n = ctx.cfg["n_fleet"]
     gp = _fleet(name, n, ctx.cfg["dtype"], ctx.dev)
     B = gp.shape_batch[0]
-    mesh = make_mesh({"batch": ctx.world})
+    axes = axes or {"batch": ctx.world}
+    mesh = make_mesh(axes)
+    if "seq" in axes:
+        gp.use_sequence_sharding(mesh, "seq")
     step, raw, opt, data = make_sharded_fit_step(gp, mesh)
     K = ctx.kernels
     with K:
@@ -276,14 +311,18 @@ def fleet_check(ctx, name):
         loss, raw1, _ = step(raw, opt, data)
         _sync(ctx.dev)
         counts, rows = K.counts(), {k: sorted(v) for k, v in K.rows.items()}
-    out = {"loss": float(loss), "launches_a_step": counts, "rows": rows}
-    per = {"lattice": {"pfft": 1, "pifft_real": 1}, "dnb2": {"fwht": 2}}[name]
+    out = {"loss": float(loss), "launches_a_step": counts, "rows": rows,
+           "k4_shapes": K.k4_shapes()}
+    # a rank's members; under a sequence mesh the lattice's transform is torch.fft
+    per_rank = B // axes["batch"]
+    per = {"lattice": {} if "seq" in axes else {"pfft": 1, "pifft_real": 1},
+           "dnb2": {"fwht": 2}}[name]
     if ctx.on_card:
         for k, m in per.items():
-            if counts[k] != m or rows.get(k) != [B // ctx.world]:
-                raise AssertionError(f"fleet {name}: {k} launched {counts[k]} times on rows "
-                                     f"{rows.get(k)}, not {m} on {B // ctx.world}")
-    group = mesh.get_group("batch") if ctx.world > 1 else None
+            if counts[k] != m or rows.get(k) != [per_rank]:
+                raise AssertionError(f"fleet {name} over {axes}: {k} launched {counts[k]} times "
+                                     f"on rows {rows.get(k)}, not {m} on {per_rank}")
+    group = mesh.get_group("batch") if axes["batch"] > 1 else None
     full_raw = {k: comm.all_gather_cat(v, group, 0) if v.shape != gp.params[k].raw.shape
                 else v for k, v in raw1.items()}
 
@@ -295,6 +334,8 @@ def fleet_check(ctx, name):
         out["step_ms"] = _best_ms(sharded, 16, ctx.dev)
         if ctx.on_card:
             out["profile"] = _profile(sharded, 8, out["step_ms"])
+    if "seq" in axes:
+        gp.use_sequence_sharding(None)
     if ctx.rank == 0:
         const = B * float(gp.n.sum()) * math.log(2 * math.pi)
         lg = gp._make_loss_fn("MLL", None, B, const, 1)
@@ -304,9 +345,10 @@ def fleet_check(ctx, name):
         with torch.no_grad():
             raw_ref, _ = rprop_update(grads, rprop_init(raw0), raw0, trainable)
         out["loss_ref"] = float(loss_ref)
-        out["loss_err"] = _check(f"fleet {name} loss", abs(out["loss"] - out["loss_ref"])
-                                 / abs(out["loss_ref"]), TOL["fleet_loss"])
-        out["raw_err"] = _check(f"fleet {name} raw", max(
+        out["loss_err"] = _check(f"fleet {name} over {axes} loss",
+                                 abs(out["loss"] - out["loss_ref"]) / abs(out["loss_ref"]),
+                                 TOL["fleet_loss"])
+        out["raw_err"] = _check(f"fleet {name} over {axes} raw", max(
             _maxabs(full_raw[k] - raw_ref[k]) for k in raw_ref), TOL["fleet_raw"])
         ref = {"raw": raw0, "opt": rprop_init(raw0)}
 
@@ -317,10 +359,11 @@ def fleet_check(ctx, name):
         with K:
             out["one_card_step_ms"] = _best_ms(one_card, 16, ctx.dev)
     dist.barrier()
-    ctx.log(f"  fleet {name} (B = {B}, n = {n}): loss {out['loss']:.9e}, "
-            f"{out['step_ms']:.3f} ms a step on {ctx.world} card(s)"
-            + (f" against {out['one_card_step_ms']:.3f} ms on one; loss {out['loss_err']:.2e} "
-               f"and raw {out['raw_err']:.2e} off the one-card step" if ctx.rank == 0 else "")
+    ctx.log(f"  fleet {name} (B = {B}, n = {n}) over {axes}: loss {out['loss']:.9e}, "
+            f"{out['step_ms']:.3f} ms a step"
+            + (f" against {out['one_card_step_ms']:.3f} ms on one card; loss "
+               f"{out['loss_err']:.2e} and raw {out['raw_err']:.2e} off the one-card step"
+               if ctx.rank == 0 else "")
             + f"; launches a step {counts}, rows {rows}"
             + (f"; profile {out['profile']}" if "profile" in out else ""))
     return out
@@ -625,9 +668,11 @@ def seq_multitask_check(ctx, ns, nq):
     return out
 
 
-def seq_hmc_check(ctx, name, n, kw):
+def seq_hmc_check(ctx, name, n, kw, two_d=False):
     """The hyperposterior of a sequence-sharded model against one card's (see
-    the module docstring)."""
+    the module docstring); with ``two_d`` also on the 2-D mesh ``{"chains":
+    2, "seq": D / 2}`` (``chain_sharding`` over ``"chains"``), against the
+    same one-card reference."""
     from ..fit.hmc import gp_log_density, sample_gp_hyperposterior
     from .dryrun import hmc_points
 
@@ -636,73 +681,104 @@ def seq_hmc_check(ctx, name, n, kw):
     C = kw["num_chains"]
     K = ctx.kernels
 
-    def at_points(lp, sampled0):
+    def at_points(lp, sampled0, sharding=None):
+        """The log-density and gradient at ``hmc_points``; with ``sharding``
+        on the rank's chain block, gathered over the chains group."""
         pts = hmc_points({k: v.detach().cpu().double().numpy() for k, v in sampled0.items()}, C)
-        leaves = {k: torch.as_tensor(v, dtype=dt, device=ctx.dev).requires_grad_(True)
-                  for k, v in pts.items()}
+        leaves = {k: torch.as_tensor(v, dtype=dt, device=ctx.dev) for k, v in pts.items()}
+        if sharding is not None:
+            leaves = {k: sharding.block(v).contiguous() for k, v in leaves.items()}
+        leaves = {k: v.requires_grad_(True) for k, v in leaves.items()}
         value = lp(leaves)
         grads = torch.autograd.grad(value.sum(), list(leaves.values()))
-        return {"value": value.detach(), **dict(zip(leaves, grads))}
+        got = {"value": value.detach(), **dict(zip(leaves, grads))}
+        if sharding is not None:
+            got = {k: comm.all_gather_cat(v, sharding.group, 0) for k, v in got.items()}
+        return got
 
-    def run():
+    def run(**extra):
         t0 = time.perf_counter()
-        res, _ = sample_gp_hyperposterior(gp, **kw)
+        res, _ = sample_gp_hyperposterior(gp, **{**kw, **extra})
         _sync(ctx.dev)
         return res, time.perf_counter() - t0
-    out = {}
-    ref = None
+
+    def sharded(mesh, sharding=None):
+        """The sampler on ``mesh`` (chains over ``sharding``'s axis if given):
+        its start against one card's, its launches, every rank's samples
+        bit for bit equal."""
+        label = f"seq_hmc {name}" + ("" if sharding is None else " 2-D")
+        gp.use_sequence_sharding(mesh, "seq")
+        with K:
+            got = at_points(*gp_log_density(gp), sharding)
+            K.reset()
+            res, wall = run(chain_sharding=sharding)
+            out = {"launches": K.counts(), "k4_shapes": K.k4_shapes()}
+        if ctx.on_card and name == "dnb2" and out["launches"]["fwht"] < 2 * res.num_grad_evals:
+            raise AssertionError(f"{label}: K4 launched {out['launches']['fwht']} times "
+                                 f"for {res.num_grad_evals} gradients")
+        rows = C // (1 if sharding is None else sharding.size)
+        L = n // axis_size(mesh, "seq")
+        if ctx.on_card and name == "dnb2" and not any(
+                (s, r) == (L, rows) for s, r, _ in out["k4_shapes"]):
+            raise AssertionError(f"{label}: K4 never ran on ({rows}, {L}) blocks: "
+                                 f"{out['k4_shapes']}")
+        if not bool(torch.isfinite(res.log_prob).all()):
+            raise AssertionError(f"{label}: non-finite log_prob")
+        if ctx.on_card:  # every rank: the sampler's collectives need them all
+            with K:
+                out["profile"] = _profile_grads(lambda: run(**short, chain_sharding=sharding),
+                                                wall * 1e3 / res.num_grad_evals)
+        # every rank's samples, log-densities and gradient count, over the world
+        mine = torch.cat([res.log_prob.reshape(-1)] + [v.reshape(-1) for _, v in
+                                                       sorted(res.samples.items())]
+                         + [torch.tensor([float(res.num_grad_evals)], dtype=dt, device=ctx.dev)])
+        every = comm.all_gather_cat(mine[None], dist.group.WORLD if ctx.world > 1 else None, 0)
+        out["ranks_bitwise_equal"] = bool((every == every[:1]).all())
+        if not out["ranks_bitwise_equal"]:
+            raise AssertionError(f"{label}: the ranks' samples differ")
+        out.update(grads=res.num_grad_evals, wall_s=wall,
+                   samples_per_s=kw["num_samples"] * C / wall, accept=float(res.accept_rate),
+                   step_size=float(res.step_size), mean_leapfrog=res.mean_leapfrog)
+        if ctx.rank == 0:
+            out["errs"] = {"value": _check(f"{label} log-density",
+                                           _rel(got["value"], ref["value"]), TOL["hmc_lp32"])}
+            for k in ("scale", "lengthscales"):
+                out["errs"][k] = _check(f"{label} gradient {k}", _rel(got[k], ref[k]),
+                                        TOL["hmc_grad32"])
+            # the acceptance and step size are reported beside one card's, not
+            # held: at this unfitted start the float32 surface keeps both runs'
+            # steps at 1e-6-1e-4, and 20 warmup iterations of dual averaging on
+            # runs that part at the first rounding leave them 3x apart (measured)
+        dist.barrier()
+        gp.use_sequence_sharding(None)
+        ctx.log(f"  {label} n = {n}, {C} chains, {kw['num_warmup']} + {kw['num_samples']} on "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: {out['grads']} gradients, "
+                f"{wall:.2f} s, {out['samples_per_s']:.2f} samples/s, accept "
+                f"{out['accept']:.3f}, step size {out['step_size']:.4g}"
+                + (f"; one card {one_card}; log-density and gradient off one card "
+                   f"{ {k: float(f'{e:.2e}') for k, e in out['errs'].items()} }"
+                   if ctx.rank == 0 else "")
+                + f"; ranks bit for bit equal; launches {out['launches']}, K4 (n, rows) "
+                f"{out['k4_shapes']}" + (f"; profile {out['profile']}" if "profile" in out else ""))
+        return out
+    # the profiled stretch: 2 + 2 iterations
+    short = dict(num_warmup=2, num_samples=2)
+    ref = one_card = None
     if ctx.rank == 0:
         with K:
             ref = at_points(*gp_log_density(gp))
             res1, wall1 = run()
-        out["one_card"] = {"samples_per_s": kw["num_samples"] * C / wall1,
-                           "accept": float(res1.accept_rate),
-                           "step_size": float(res1.step_size)}
+            one_card = {"samples_per_s": kw["num_samples"] * C / wall1,
+                        "accept": float(res1.accept_rate), "step_size": float(res1.step_size)}
+            if ctx.on_card:
+                one_card["profile"] = _profile_grads(lambda: run(**short),
+                                                     wall1 * 1e3 / res1.num_grad_evals)
     dist.barrier()
-    gp.use_sequence_sharding(make_mesh({"seq": ctx.world}))
-    with K:
-        got = at_points(*gp_log_density(gp))
-        K.reset()
-        res, wall = run()
-        out["launches"], out["k4_shapes"] = K.counts(), K.k4_shapes()
-    if ctx.on_card and name == "dnb2" and out["launches"]["fwht"] < 2 * res.num_grad_evals:
-        raise AssertionError(f"seq_hmc {name}: K4 launched {out['launches']['fwht']} times "
-                             f"for {res.num_grad_evals} gradients")
-    if not bool(torch.isfinite(res.log_prob).all()):
-        raise AssertionError(f"seq_hmc {name}: non-finite log_prob")
-    # every rank's samples, log-densities and gradient count, compared bit for bit
-    mine = torch.cat([res.log_prob.reshape(-1)] + [v.reshape(-1) for _, v in
-                                                   sorted(res.samples.items())]
-                     + [torch.tensor([float(res.num_grad_evals)], dtype=dt, device=ctx.dev)])
-    group = make_mesh({"seq": ctx.world}).get_group("seq") if ctx.world > 1 else None
-    every = comm.all_gather_cat(mine[None], group, 0)
-    out["ranks_bitwise_equal"] = bool((every == every[:1]).all())
-    if not out["ranks_bitwise_equal"]:
-        raise AssertionError(f"seq_hmc {name}: the ranks' samples differ")
-    out.update(grads=res.num_grad_evals, wall_s=wall,
-               samples_per_s=kw["num_samples"] * C / wall, accept=float(res.accept_rate),
-               step_size=float(res.step_size), mean_leapfrog=res.mean_leapfrog)
-    if ctx.rank == 0:
-        out["errs"] = {"value": _check(f"seq_hmc {name} log-density",
-                                       _rel(got["value"], ref["value"]), TOL["hmc_lp32"])}
-        for k in ("scale", "lengthscales"):
-            out["errs"][k] = _check(f"seq_hmc {name} gradient {k}", _rel(got[k], ref[k]),
-                                    TOL["hmc_grad32"])
-        # the acceptance and step size are reported beside one card's, not
-        # held: at this unfitted start the float32 surface keeps both runs'
-        # steps at 1e-6-1e-4, and 20 warmup iterations of dual averaging on
-        # runs that part at the first rounding leave them 3x apart (measured)
-    dist.barrier()
-    gp.use_sequence_sharding(None)
-    ctx.log(f"  seq_hmc {name} n = {n}, {C} chains, {kw['num_warmup']} + {kw['num_samples']} "
-            f"on {ctx.world} card(s): {out['grads']} gradients, {wall:.2f} s, "
-            f"{out['samples_per_s']:.2f} samples/s, accept {out['accept']:.3f}, step size "
-            f"{out['step_size']:.4g}"
-            + (f"; one card {out['one_card']}; log-density and gradient off one card "
-               f"{ {k: float(f'{e:.2e}') for k, e in out['errs'].items()} }"
-               if ctx.rank == 0 else "")
-            + f"; ranks bit for bit equal; launches {out['launches']}, K4 (n, rows) "
-            f"{out['k4_shapes']}")
+    out = sharded(make_mesh({"seq": ctx.world}))
+    out["one_card"] = one_card
+    if two_d:
+        mesh = make_mesh({"chains": 2, "seq": ctx.world // 2})
+        out["two_d"] = sharded(mesh, batch_sharding(mesh, "chains"))
     return out
 
 
@@ -828,16 +904,21 @@ def body(rank, world, cfg):
 
     ctx = _Ctx(cfg)
     full = cfg["full"]
+    # the 2-D meshes {"chains": 2, "seq": D / 2} and {"batch": 2, "seq": D / 2}
+    two_d = full and world >= 4 and world % 2 == 0
     res = {"cards": world}
     t0 = time.perf_counter()
     if full:
         res["seq_serving"] = {name: seq_serving_check(ctx, name, cfg["n_seq"], cfg["n_query"])
                               for name in ("lattice", "dnb2")}
         res["seq_multitask"] = seq_multitask_check(ctx, cfg["mt_ns"], cfg["n_query_mt"])
-        res["seq_hmc"] = {name: seq_hmc_check(ctx, name, cfg["n_flag"], cfg["hmc_flagship"])
-                          for name in ("lattice", "dnb2")}
+        res["seq_hmc"] = {name: seq_hmc_check(ctx, name, cfg["n_flag"], cfg["hmc_flagship"],
+                                              two_d=two_d) for name in ("lattice", "dnb2")}
         res["seq_paths_s"] = time.perf_counter() - t0
     res["fleet"] = {name: fleet_check(ctx, name) for name in ("lattice", "dnb2")}
+    if two_d:
+        res["fleet_2d"] = {name: fleet_check(ctx, name, {"batch": 2, "seq": world // 2})
+                           for name in ("lattice", "dnb2")}
     names = ("lattice", "dnb2") if full else ("dnb2",)
     metrics = ("MLL", "GCV", "CV") if full else ("MLL",)
     res["seq"] = {name: seq_check(ctx, name, cfg["n_seq"], cfg["dtype"], metrics,

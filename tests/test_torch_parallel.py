@@ -81,6 +81,26 @@ the general solver instead of the half spectrum (the same sums in another
 order; ~2e-10 here).  Moving y by one ulp moves no sample at all (the norm
 term, ~0.5 against a log-determinant of ~-768, absorbs it), so that is no
 witness.  The four ranks' samples agree bit for bit.
+
+The two 2-D layouts, both models.  The hyperposterior on ``{"chains": 2,
+"seq": 2}`` (``dryrun.seq_hmc_2d_check``, the ``SEQ_HMC`` sizes): rank (c,
+s) samples 4 chains on its sequence block.  It is held against the same
+mesh's sequence-only run on the same seed at rtol 1e-9 (the log-density is
+row by row: the eigenvalue floor is a maximum per chain), against the
+port's unsharded sampler at atol 2 W, and across the four ranks bit for
+bit.  The digital net's W moves the FWHT's sums instead: its 2^8-point
+Hadamard contraction as two of 2^4 (~4e-7 here, ~2e-8 of the largest
+sample; the digital net's noise of 1e-16 leaves the eigenvalue floor in
+charge, and the sampler amplifies a 1e-13 change of the log-density that
+far in 10 iterations).  Its log-density and gradient at ``hmc_points`` are
+held at rtol 1e-10 against the port's unsharded ones and, for the digital
+net, against the JAX package's under its own 2 x 2 mesh; the JAX package's
+2-D lattice stops in XLA's CPU FFT, so the lattice has no JAX reference
+there.  The fleet step on ``{"batch": 2, "seq": 2}`` (the ``FLEET`` sizes,
+the fleet sequence-sharded) is held against the JAX package's
+``make_sharded_fit_step`` on its own 2 x 2 mesh at the 1-D fleet test's
+rtol 1e-10 / atol 1e-12.  A ``chain_sharding`` on another mesh, and a fleet
+step over the sequence axis, raise ``ValueError``.
 """
 
 import math
@@ -108,6 +128,9 @@ MT_JAX = ("mt_lattice",)       # the cases with a JAX reference (M <= 5)
 MT_TOO_SMALL = ("FastGPLattice", (1 << 10, 2), 2)  # n_min = 2 does not split over 4 ranks
 RESIDUE_RS = (4, 2, 1)         # r_v of the residue layout check, n_min = 8
 TRAINED = ("scale", "lengthscales")
+MESH_2D = {"chains": 2, "seq": 2}   # the hyperposterior's 2-D mesh (dryrun.seq_hmc_2d_check)
+FLEET_2D = {"batch": 2, "seq": 2}   # the fleet step's (dryrun.cpu_checks)
+MODELS = dryrun.FAST_MODELS
 ROUNDING_CASES = (("lattice", "GCV"), ("lattice", "CV"))  # scale gradient held at W
 
 
@@ -144,9 +167,12 @@ def _cv_weights():
     return np.random.default_rng(3).uniform(0.5, 1.5, N_SEQ)
 
 
-def _jax_mesh(axis):
+def _jax_mesh(axes):
+    """A JAX mesh over 4 of the 8 virtual devices: ``{axes: 4}`` for an axis
+    name, else the axes as given (a 2-D mesh)."""
     from fastgaussianprocesses_tpu.parallel import mesh as pm
-    return pm.make_mesh({axis: WORLD}, devices=jax.devices()[:WORLD])
+    axes = {axes: WORLD} if isinstance(axes, str) else axes
+    return pm.make_mesh(axes, devices=jax.devices()[:WORLD])
 
 
 def _jax_transforms(inputs):
@@ -280,12 +306,14 @@ def _port_multitask():
             for label, case in MT_CASES.items()}
 
 
-def _jax_seq_log_density():
-    """The JAX package's GP log-density of ``_hmc_model`` under its mesh,
-    vmapped over the 8 chains of ``dryrun.hmc_points``: values and
-    gradients."""
+def _jax_seq_log_density(cls_name="FastGPLattice", axes="seq"):
+    """The JAX package's GP log-density of ``_hmc_model`` (of ``cls_name``)
+    under its mesh ``axes``, vmapped over the 8 chains of
+    ``dryrun.hmc_points``: values and gradients.  On a mesh with a
+    ``"chains"`` axis (the 2-D mesh) the points are placed over it."""
     import fastgaussianprocesses_tpu as fj
     from fastgaussianprocesses_tpu.fit import hmc as jh
+    from jax.sharding import NamedSharding, PartitionSpec
 
     got = {}
 
@@ -296,10 +324,10 @@ def _jax_seq_log_density():
         got["logprob"], got["init"] = logprob, init
         raise Captured
 
-    gp = fj.FastGPLattice(2, seed_for_seq=7)
+    gp = getattr(fj, cls_name)(2, seed_for_seq=7)
     x = np.asarray(gp.get_x_next(SEQ_HMC[0]))
     gp.add_y_next(jnp.asarray(np.sin(2 * np.pi * x[:, 0])))
-    mesh = _jax_mesh("seq")
+    mesh = _jax_mesh(axes)
     saved = jh.hmc
     jh.hmc = capture
     try:
@@ -310,31 +338,52 @@ def _jax_seq_log_density():
             except Captured:
                 pass
             pts = dryrun.hmc_points({k: np.asarray(v) for k, v in got["init"].items()})
-            v, g = jax.jit(jax.vmap(jax.value_and_grad(got["logprob"])))(
-                {k: jnp.asarray(p) for k, p in pts.items()})
+            pts = {k: jnp.asarray(p) for k, p in pts.items()}
+            if "chains" in mesh.axis_names:
+                pts = jax.device_put(pts, NamedSharding(mesh, PartitionSpec("chains")))
+            v, g = jax.jit(jax.vmap(jax.value_and_grad(got["logprob"])))(pts)
     finally:
         jh.hmc = saved
     return np.asarray(v), {k: np.asarray(a) for k, a in g.items()}
 
 
 def _port_seq_hmc():
-    """The port's unsharded sampler on ``_hmc_model`` with the ranks'
-    options, and the same run with its log-density through the general
-    solver (``_FastSolver``) instead of the half spectrum: the witness W of
-    the module docstring."""
-    from fastgaussianprocesses_torch.fit.hmc import sample_gp_hyperposterior
+    """For each model of ``MODELS``: the port's unsharded sampler on
+    ``_hmc_model`` with the ranks' options, the same run with the same sums
+    in another order -- the witness W of the module docstring -- and the
+    unsharded log-density at ``dryrun.hmc_points``.  The other order: for
+    the lattice the general solver (``_FastSolver``) instead of the half
+    spectrum, for the digital net the FWHT's 2^8-point Hadamard contraction
+    as two of 2^4 (``fwht._fwht_factors``)."""
+    from fastgaussianprocesses_torch.fit.hmc import gp_log_density, sample_gp_hyperposterior
+    from fastgaussianprocesses_torch.ops import fwht as tf
 
     n, seed, warm, samples, lmax = SEQ_HMC
-    runs = []
-    for half in (True, False):
-        gp = dryrun._hmc_model(n)
-        if not half:
-            gp._use_half_spectrum = lambda n: False
+
+    def run(gp):
         res, _ = sample_gp_hyperposterior(gp, num_samples=samples, num_warmup=warm,
                                           num_chains=8, seed=seed, max_leapfrog=lmax)
-        runs.append({k: v.numpy() for k, v in res.samples.items()})
-    witness = max(float(np.abs(runs[0][k] - runs[1][k]).max()) for k in runs[0])
-    return runs[0], witness
+        return {k: v.numpy() for k, v in res.samples.items()}
+    out = {}
+    for name, cls_name in MODELS.items():
+        gp = dryrun._hmc_model(n, cls_name)
+        lp, sampled0 = gp_log_density(gp)
+        log_density = dryrun.log_density_at(
+            lp, dryrun.hmc_points({k: v.numpy() for k, v in sampled0.items()}))
+        samples0 = run(gp)
+        other = dryrun._hmc_model(n, cls_name)
+        factors = tf._fwht_factors
+        if name == "lattice":
+            other._use_half_spectrum = lambda n: False
+        else:
+            tf._fwht_factors = lambda m: [m // 2, m - m // 2]
+        try:
+            samples1 = run(other)
+        finally:
+            tf._fwht_factors = factors
+        witness = max(float(np.abs(samples0[k] - samples1[k]).max()) for k in samples0)
+        out[name] = {"samples": samples0, "witness": witness, "log_density": log_density}
+    return out
 
 
 def _jax_fleet():
@@ -352,6 +401,27 @@ def _jax_fleet():
     (loss, _), grads = gp._make_loss_fn("MLL", None, B, mll_const, 1)(raw0, gp._fit_data())
     raw1, _ = rprop_update(grads, rprop_init(raw0), raw0,
                            {k: p.trainable for k, p in gp.params.items()})
+    return float(loss), {k: np.asarray(v) for k, v in raw1.items()}
+
+
+def _jax_fleet_2d(cls_name):
+    """The JAX package's ``make_sharded_fit_step`` on ``dryrun.fleet_model``'s
+    fleet of ``cls_name``, sequence-sharded, on its mesh ``FLEET_2D``: the
+    loss and the raw parameters after one step."""
+    import fastgaussianprocesses_tpu as fj
+    from fastgaussianprocesses_tpu.parallel import mesh as pm
+
+    B, n, d, seed = FLEET
+    gp = getattr(fj, cls_name)(d, seed_for_seq=seed, shape_batch=(B,),
+                               shape_lengthscales=(B, d), shape_scale=(B, 1))
+    x = np.asarray(gp.get_x_next(n))
+    gp.add_y_next(jnp.asarray(np.stack([np.sin(2 * np.pi * x[:, 0]) * (b + 1)
+                                        for b in range(B)])))
+    mesh = _jax_mesh(FLEET_2D)
+    with mesh:
+        gp.use_sequence_sharding(mesh)
+        step, raw, opt_state, data = pm.make_sharded_fit_step(gp, mesh)
+        loss, raw1, _ = step(raw, opt_state, data)
     return float(loss), {k: np.asarray(v) for k, v in raw1.items()}
 
 
@@ -379,7 +449,8 @@ def _jax_refs_elsewhere(rank, world):
     a spawned process runs the environment's start-up again, so the JAX
     platform is set to the CPU here as ``tests/conftest.py`` sets it)."""
     jax.config.update("jax_platforms", "cpu")
-    return {"serve": _jax_serving(), "log_density": _jax_seq_log_density()}
+    return {"serve": _jax_serving(), "log_density": _jax_seq_log_density(),
+            "log_density_2d": _jax_seq_log_density("FastGPDigitalNetB2", MESH_2D)}
 
 
 @pytest.fixture(scope="module")
@@ -406,7 +477,8 @@ def ranks():
                 "serve_port": _port_serving(), "mt_port": _port_multitask(),
                 "seq_hmc": _port_seq_hmc()}
         refs.update({"transforms": _jax_transforms(inputs), "seq": _jax_seq_losses(),
-                     "fleet": _jax_fleet(), "mt": _jax_multitask()})
+                     "fleet": _jax_fleet(), "mt": _jax_multitask(),
+                     "fleet_2d": {name: _jax_fleet_2d(cls) for name, cls in MODELS.items()}})
     finally:
         torch.set_num_threads(threads)
         refs_elsewhere = elsewhere.result()[0]
@@ -784,7 +856,7 @@ def test_sequence_sharded_log_density_matches_jax(ranks):
 
 def test_sequence_sharded_sampler_matches_unsharded(ranks):
     _, results, refs = ranks
-    samples, witness = refs["seq_hmc"]
+    samples, witness = refs["seq_hmc"]["lattice"]["samples"], refs["seq_hmc"]["lattice"]["witness"]
     assert 0.0 < witness < 1e-8
     for r in results:
         h = r["seq_hmc"]
@@ -810,7 +882,120 @@ def test_sequence_sharded_sampler_ranks_agree_bit_for_bit(ranks):
             np.testing.assert_array_equal(h["grads"][k], v)
 
 
-def test_chain_sharding_with_sequence_mesh_raises(ranks):
+# ---------------------------------------------------------------------------
+# the 2-D meshes: the hyperposterior over chains and sequence, the fleet step
+# over batch and sequence
+# ---------------------------------------------------------------------------
+
+def _sampler_2d(results, name):
+    return [r["seq_hmc_2d"][name] for r in results]
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_2d_sampler_matches_sequence_only(ranks, model):
+    """Rank (c, s) samples chains [4 c, 4 c + 4) on sequence block s; the same
+    mesh's sequence-only run samples all 8 on each sequence pair.  The
+    log-density is row by row (the eigenvalue floor is a maximum per chain),
+    so the two runs agree as the chain-sharded sampler agrees with the
+    unsharded one."""
+    _, results, _ = ranks
+    for h in _sampler_2d(results, model):
+        got, want = h["two_d"], h["seq_only"]
+        assert got["log_prob"].shape == (SEQ_HMC[3], 8) and np.isfinite(got["log_prob"]).all()
+        assert got["grad_evals"] == want["grad_evals"]
+        np.testing.assert_allclose(got["log_prob"], want["log_prob"], rtol=1e-9)
+        for k, v in want["samples"].items():
+            np.testing.assert_allclose(got["samples"][k], v, rtol=1e-9, atol=1e-9, err_msg=k)
+        np.testing.assert_allclose(got["accept_rate"], want["accept_rate"], rtol=1e-9)
+        np.testing.assert_allclose(got["step_size"], want["step_size"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_2d_sampler_matches_unsharded(ranks, model):
+    """Against the port's unsharded sampler on the same seed, at 2 W (the
+    witness of the module docstring), W itself under 1e-7 of the largest
+    sample."""
+    _, results, refs = ranks
+    ref = refs["seq_hmc"][model]
+    largest = max(float(np.abs(v).max()) for v in ref["samples"].values())
+    assert 0.0 < ref["witness"] < 1e-7 * largest
+    for h in _sampler_2d(results, model):
+        for k, v in ref["samples"].items():
+            np.testing.assert_allclose(h["two_d"]["samples"][k], v, rtol=0,
+                                       atol=2 * ref["witness"], err_msg=k)
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_2d_sampler_ranks_agree_bit_for_bit(ranks, model):
+    """The four ranks return the same samples, log-densities, acceptance, step
+    size and gradient count, bit for bit, and the same log-density and
+    gradient at ``hmc_points`` (each rank's chain block, gathered)."""
+    _, results, _ = ranks
+    h0, *others = _sampler_2d(results, model)
+    for h in others:
+        for run in ("two_d", "seq_only"):
+            a, b = h[run], h0[run]
+            assert (a["grad_evals"], a["accept_rate"], a["step_size"]) == \
+                (b["grad_evals"], b["accept_rate"], b["step_size"])
+            np.testing.assert_array_equal(a["log_prob"], b["log_prob"])
+            for k, v in b["samples"].items():
+                np.testing.assert_array_equal(a["samples"][k], v)
+        np.testing.assert_array_equal(h["value"], h0["value"])
+        for k, v in h0["grads"].items():
+            np.testing.assert_array_equal(h["grads"][k], v)
+
+
+def test_2d_log_density_matches_jax(ranks):
+    """The digital net's log-density and gradient at ``hmc_points`` on the
+    2-D mesh, against the JAX package's vmapped log-density under its own
+    ``{"chains": 2, "seq": 2}`` mesh (points placed over ``"chains"``).  The
+    lattice has no JAX reference here: the JAX package's 2-D lattice stops
+    in XLA's CPU FFT, so the lattice is held against the port's own runs
+    (``test_2d_log_density_matches_unsharded``)."""
+    _, results, refs = ranks
+    value, grads = refs["log_density_2d"]
+    for h in _sampler_2d(results, "dnb2"):
+        assert h["value"].shape == (8,)
+        np.testing.assert_allclose(h["value"], value, rtol=1e-10)
+        for k, g in grads.items():
+            np.testing.assert_allclose(h["grads"][k], g, rtol=1e-10, err_msg=k)
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_2d_log_density_matches_unsharded(ranks, model):
+    _, results, refs = ranks
+    value, grads = refs["seq_hmc"][model]["log_density"]
+    for h in _sampler_2d(results, model):
+        np.testing.assert_allclose(h["value"], value, rtol=1e-10)
+        for k, g in grads.items():
+            np.testing.assert_allclose(h["grads"][k], g, rtol=1e-10, err_msg=k)
+
+
+def test_2d_chain_sharding_on_another_mesh_raises(ranks):
+    """``chain_sharding`` over a 1-D chains mesh on a model sequence-sharded
+    over another 1-D mesh of the same ranks: ``ValueError``."""
     _, results, _ = ranks
     for r in results:
-        assert r["seq_hmc"]["two_d"] is not None and "2-D mesh" in r["seq_hmc"]["two_d"]
+        msg = r["seq_hmc_2d"]["mismatched"]
+        assert msg is not None and "two axes of one mesh" in msg
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_2d_fleet_step_matches_jax(ranks, model):
+    """``make_sharded_fit_step`` on a sequence-sharded fleet over
+    ``{"batch": 2, "seq": 2}`` against the JAX package's on its own 2-D
+    mesh, at the 1-D fleet test's tolerances."""
+    _, results, refs = ranks
+    loss_ref, raw_ref = refs["fleet_2d"][model]
+    for r in results:
+        got = r["fleet_2d"][model]
+        np.testing.assert_allclose(got["loss"], loss_ref, rtol=1e-10)
+        for k, v in raw_ref.items():
+            np.testing.assert_allclose(got["raw"][k], v, atol=1e-12, err_msg=k)
+
+
+def test_2d_fleet_step_over_the_sequence_axis_raises(ranks):
+    _, results, _ = ranks
+    for r in results:
+        for got in r["fleet_2d"].values():
+            assert got["same_axis"] is not None and "two axes of one mesh" in got["same_axis"]
