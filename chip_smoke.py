@@ -16,8 +16,10 @@ Phases; any failure raises and the exit code is not 0:
    ``load_jax_params``; requests: 3 x ``post_mean_var`` on 4096 points, then
    ``post_mean``, ``post_var``, ``post_cubature_mean``, ``post_cubature_var``.
    Kernel launch counters are zeroed just before each model's run and read
-   just after; every kernel of its path must have launched (K1-K3 for the
-   lattice, K4 for the digital net).  They run first, so that the lattice's
+   just after; every kernel of its path must have launched (K1-K3 and K5,
+   the cross-kernel and the prior diagonal, for the lattice, K4 for the
+   digital net), and the lattice's first ``post_mean_var`` must launch K5
+   exactly once a query chunk in each layout.  They run first, so that the lattice's
    first request pays what a fresh serving process pays.  One more
    ``post_mean_var`` of each runs under ``torch.profiler`` for the
    device-time split; the digital net's must subtract no row means from a
@@ -56,6 +58,11 @@ Phases; any failure raises and the exit code is not 0:
    than the 50 MB L2, as the serving path finds its input; at R = 119 also
    the whole op ``ft_stable_fwht``, K4's group sizes 8, 12, 16 and 32 MB,
    and the rate at which K4 moves the function's bytes.
+   Kernel K5 (``ops/si_cross``, ``si_cross_times``) at the lattice's query
+   chunk, R = 59 rows against n = 2^20 columns, d = 8, alpha = 2: against
+   its plain version, timed beside it, the whole ``kernel_fused_scan``
+   through it, the loop it replaced, and the bound; and its paired layout
+   (the prior diagonal of the chunk).
 4. Cross-checks at n = 2^16, d = 8: the card's float32 paths against the
    CPU's float32 plain-kernel paths and the CPU's float64 paths (lattice:
    half spectrum; digital net: the general solver).
@@ -224,7 +231,9 @@ checks and timings (``phase_kernels`` / ``phase_fwht`` with ``base=False``).  It
 ``python3 chip_smoke.py --fwht-times [DIR]`` times K4 alone as phase 3
 does (public API only), for the package in DIR (default: this checkout),
 and prints one ``{"fwht_times": ...}`` line: a way to time another
-checkout (a parent commit) on the same card.
+checkout (a parent commit) on the same card.  ``python3 chip_smoke.py
+--si-cross-times`` runs phase 3's K5 part alone and prints one
+``{"si_cross_times": ...}`` line.
 """
 
 import contextlib
@@ -247,6 +256,8 @@ N_MAIN = 1 << 20
 D = 8
 N_QUERY = 4096
 NB_DIGITAL = 119          # rows of the digital net's query chunk at n = 2^20
+NB_LATTICE = 59           # rows of the lattice's query chunk at n = 2^20
+TOL_K5 = 1e-5             # K5 against its plain version, f32: of the largest value
 TOL_KERNEL = 3e-6         # max relative error against the plain version, f32
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -563,6 +574,63 @@ def phase_pifft(torch, tp, tf, ttr):
     return row, counts
 
 
+def si_cross_times(torch, sc, series):
+    """Phase 3's K5: the lattice's query chunk (R = 59 rows against n = 2^20
+    columns, d = 8, alpha = 2, float32, one hyperparameter row) through the
+    kernel against its plain version (TOL_K5 of the largest value) and
+    against the plain version in float64; times in CUDA graphs (``gtime``)
+    of the kernel, the plain version, the whole ``kernel_fused_scan``
+    through the kernel ("op") and the loop it replaced on the same inputs;
+    the bound: the output stored and the columns read once, or the least
+    FLOPs of the folded series, 2 + 2 deg a (row, column, dimension) (the
+    difference, deg = 2 alpha fused multiply-adds, the product), whichever
+    takes longer; then the paired layout (the chunk's prior diagonal, 59
+    values)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    R, n, a = NB_LATTICE, N_MAIN, 2
+    x = torch.rand((R, D), generator=g, device="cuda")
+    z = torch.rand((n, D), generator=g, device="cuda")
+    s = torch.full((1,), 1.3, device="cuda")
+    ls = torch.rand((1, D), generator=g, device="cuda") + 0.5
+    alpha, zero, one = np.full(D, a), np.zeros((1, D), dtype=np.int64), np.ones(1)
+    tb = sc.table(alpha, zero, zero, one, one, torch.float32, x.device)
+    tb64 = sc.table(alpha, zero, zero, one, one, torch.float64, x.device)
+    run = lambda: sc.si_cross(x, z, alpha, zero, zero, one, one, s, ls)
+    plain = lambda: sc.si_cross_plain(x, z, tb, s, ls)
+    part = lambda dl, j, b, k: series.si_part_dim(dl, a, b, k)
+    fused = lambda bern: series.kernel_fused_scan(part, x[:, None], z[None], series.lattice_ominus,
+                                                  zero, zero, one, one, s, ls[0], alpha,
+                                                  bernoulli=bern)
+    got = run()
+    err, abs_err = rel_err(got, plain())
+    err64 = rel_err(got, sc.si_cross_plain(x.double(), z.double(), tb64, s.double(),
+                                           ls.double()))[0]
+    err_op = rel_err(fused(True), fused(False))[0]
+    del got
+    log(f"  K5 (n=2^20, R={R}, d={D}): vs plain {err:.3e} (tol {TOL_K5:.0e}), max abs "
+        f"{abs_err:.3e}; vs float64 plain {err64:.3e}; kernel_fused_scan through K5 vs the "
+        f"loop {err_op:.3e}")
+    if not (err < TOL_K5 and err64 < TOL_K5 and err_op < TOL_K5):
+        raise AssertionError("K5 disagrees with its plain version or the loop")
+    nb = R * n * 4 + n * D * 4 + R * D * 4
+    b_ms, b_by = bound(nb, R * n * D * (2 + 2 * (2 * a)))
+    ms = gtime(run, 50)
+    op_ms = gtime(lambda: fused(True), 50)
+    plain_ms = gtime(plain, 3)
+    loop_ms = gtime(lambda: fused(False), 3)
+    pair = lambda: sc.si_cross(x, x, alpha, zero, zero, one, one, s, ls, paired=True)
+    e_pair = rel_err(pair(), sc.si_cross_plain(x, x, tb, s, ls, paired=True))[0]
+    pair_ms = gtime(pair, 200)
+    log(f"  K5: kernel {ms:.4f} ms, op {op_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.4f} ms, the loop it replaced {loop_ms:.4f} ms; paired (R={R}) "
+        f"{pair_ms:.4f} ms, vs plain {e_pair:.3e}")
+    if not e_pair < TOL_K5:
+        raise AssertionError("K5's paired layout disagrees with its plain version")
+    return {"max_abs_err": abs_err, "rel_err": err, "rel_err_f64": err64, "ms": ms,
+            "op_ms": op_ms, "plain_ms": plain_ms, "loop_ms": loop_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "paired_ms": pair_ms}
+
+
 def _f(x):
     return np.sin(2 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1]) + x.sum(1)
 
@@ -575,9 +643,12 @@ def _raw_params(seed=7):
             "noise_task_kernel": np.zeros(1)}
 
 
-def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours, no_centred_copy=False):
+def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours, no_centred_copy=False,
+                  per_chunk=()):
     """Phase 2: the n = 2^20, d = 8 serving path of one model on the card.
-    ``path_kernels``: the launch counters its run must move; ``ours``: the
+    ``path_kernels``: the launch counters its run must move; ``per_chunk``:
+    those the first ``post_mean_var`` must move by exactly its number of
+    query chunks (a chunk sent back to a slower path would not); ``ours``: the
     substrings of their CUDA kernel names in the profile; ``no_centred_copy``:
     fail if the profiled request subtracts row means from a whole query chunk
     (``x - x.mean(-1, keepdim=True)``: K4 centres on load)."""
@@ -600,10 +671,13 @@ def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours, no_centr
     lat["cache warm-up (k1parts, ytilde)"] = time.perf_counter() - t0
     out = {}
     for i in range(3):
+        before = {k: v for c in counters for k, v in c.launches.items()}
         t0 = time.perf_counter()
         out[f"post_mean_var#{i}"] = gp.post_mean_var(xq)
         sync()
         lat[f"post_mean_var#{i} (N={N_QUERY})"] = time.perf_counter() - t0
+        if i == 0:
+            first = {k: v - before[k] for c in counters for k, v in c.launches.items()}
     for name, call in (("post_mean", lambda: gp.post_mean(xq)),
                        ("post_var", lambda: gp.post_var(xq)),
                        ("post_cubature_mean", gp.post_cubature_mean),
@@ -623,6 +697,12 @@ def phase_serving(torch, ft, counters, cls, solver, path_kernels, ours, no_centr
         raise AssertionError(f"the card model did not take the float32 {solver} path")
     if not all(counts[k] > 0 for k in path_kernels):
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
+    chunks = -(-N_QUERY // gp._query_chunk_size(N_QUERY, N_MAIN))
+    if per_chunk:
+        log(f"  launches in the first post_mean_var ({chunks} query chunks): "
+            f"{ {k: first[k] for k in per_chunk} }")
+    if any(first[k] != chunks for k in per_chunk):
+        raise AssertionError(f"{per_chunk}: not one launch a query chunk ({chunks}): {first}")
 
     pm, pv = out["post_mean_var#0"]
     for k, v in out.items():
@@ -2266,8 +2346,13 @@ def main(argv):
     if argv[:1] == ["--multichip"]:
         return multichip(torch)
     import fastgaussianprocesses_torch as ft
+    from fastgaussianprocesses_torch.kernels import series
     from fastgaussianprocesses_torch.ops import cuda_lib, fwht as tf, perm_fft as tp
-    from fastgaussianprocesses_torch.ops import transforms as ttr
+    from fastgaussianprocesses_torch.ops import si_cross as sc, transforms as ttr
+    if argv[:1] == ["--si-cross-times"]:
+        log(f"card: {smi_line()}")
+        print(json.dumps({"si_cross_times": si_cross_times(torch, sc, series)}))
+        return 0
 
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2283,8 +2368,13 @@ def main(argv):
     log(f"  g++ build of {native.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
     t2 = time.perf_counter()
     log("phase 2: serving FastGPLattice(d=8) at n=2^20 on the card")
-    counts, _ = phase_serving(torch, ft, (tp, tf), ft.FastGPLattice, "_PermSpectrumSolver",
-                              ("pfft", "pifft_real", "quad"), ("pass_a_kernel", "slab_kernel"))
+    counts, nb_lattice = phase_serving(torch, ft, (tp, tf, sc), ft.FastGPLattice,
+                                       "_PermSpectrumSolver",
+                                       ("pfft", "pifft_real", "quad", "si_cross", "si_pair"),
+                                       ("pass_a_kernel", "slab_kernel", "si_"),
+                                       per_chunk=("si_cross", "si_pair"))
+    if nb_lattice != NB_LATTICE:
+        raise AssertionError(f"the lattice's query chunk is {nb_lattice} rows, not {NB_LATTICE}")
     log("phase 2: serving FastGPDigitalNetB2(d=8) at n=2^20 on the card")
     counts_dn, nb = phase_serving(torch, ft, (tp, tf), ft.FastGPDigitalNetB2, "_FastSolver",
                                   ("fwht",), ("fwht_",), no_centred_copy=True)
@@ -2301,6 +2391,7 @@ def main(argv):
     rows_fwht = phase_fwht(torch, tf, ttr, nb, extra=[(N_MAIN // 2, 1), (N_MAIN, 3 * NB_MT),
                                                       (N_HMC, C_HMC), (N_FLEET, B_FLEET)])
     row_pifft, counts_pifft = phase_pifft(torch, tp, tf, ttr)
+    row_k5 = si_cross_times(torch, sc, series)
     log(f"  phase 3: {time.perf_counter() - t3:.1f} s")
     t4 = time.perf_counter()
     log("phase 4: cross-check at n=2^16, d=8")
@@ -2378,6 +2469,14 @@ def main(argv):
                     "launches": counts_pifft["pifft"], "shape": "n=2^20, R=1",
                     **{k: row_pifft[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "op_ms")}})
+    kernels.append({"name": "K5 si_cross.si_cross", "route": "cuda",
+                    "source": "fastgaussianprocesses_torch/csrc/si_cross.cu",
+                    "replaces": "none (kernels/series.kernel_fused_scan's loop; XLA fuses the "
+                                "JAX package's lax.scan)",
+                    "launches": counts["si_cross"], "library_ms": None,
+                    "shape": f"n=2^20, R={NB_LATTICE}, d={D}",
+                    **{k: row_k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "op_ms", "loop_ms")}})
     r = rows_fwht[(N_MAIN, nb)]
     kernels.append({"name": "K4 fwht.fwht", "route": "cuda",
                     "source": "fastgaussianprocesses_torch/csrc/fwht.cu",

@@ -13,21 +13,12 @@ Two pieces, as in the JAX package:
 materializing a ``(N, n, d)`` tensor.
 """
 
-import math
-
 import numpy as np
 import torch
 
-from ..ops.bernoulli import bernoulli_poly
+from ..ops import si_cross
+from ..ops.bernoulli import bernoulli_poly, si_coeff
 from ..ops.walsh_closed import omega_walsh_closed, omega_walsh_closed_pair
-
-
-def _si_coeff(alpha_j: int, b: int, k: int) -> float:
-    order = 2 * alpha_j - b - k
-    if order < 2:
-        raise ValueError(f"kernel order must be >= 2, got {order}")
-    return float((-1.0) ** (alpha_j + k + 1)) * math.exp(
-        2 * alpha_j * math.log(2 * math.pi) - math.lgamma(order + 1))
 
 
 def si_parts_from_delta(delta, alpha, beta, kappa):
@@ -50,14 +41,14 @@ def si_parts_from_delta(delta, alpha, beta, kappa):
     cols = []
     for j in range(delta.shape[-1]):
         a, b, k = int(alpha[j]), int(beta[j]), int(kappa[j])
-        cols.append(_si_coeff(a, b, k) * bernoulli_poly(2 * a - b - k, delta[..., j]))
+        cols.append(si_coeff(a, b, k) * bernoulli_poly(2 * a - b - k, delta[..., j]))
     return torch.stack(cols, dim=-1)
 
 
 def si_part_dim(delta_j, alpha_j: int, b: int, k: int):
     """One dimension's SI series term (scalar orders; see si_parts_from_delta).
     Returns a fresh buffer (callers may update it in place)."""
-    return bernoulli_poly(2 * alpha_j - b - k, delta_j).mul_(_si_coeff(alpha_j, b, k))
+    return bernoulli_poly(2 * alpha_j - b - k, delta_j).mul_(si_coeff(alpha_j, b, k))
 
 
 def lattice_ominus(x, z):
@@ -229,7 +220,8 @@ def kernel_from_consts_t(parts_t, consts, scale, lengthscales):
 
 
 def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
-                      scale, lengthscales, alpha, part_dim_pair_fn=None):
+                      scale, lengthscales, alpha, part_dim_pair_fn=None, bernoulli=False,
+                      factor=None):
     """Kernel values without the ``(..., d)`` parts tensor: a loop over
     dimension groups accumulating the product in one running buffer.
 
@@ -246,7 +238,25 @@ def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
     its place and is evaluated on the broadcastable sides instead of the
     delta, so that a model can compute per-side features once (the digital
     net's XOR-commuting bit spreads).  Both return a fresh buffer.
+
+    ``bernoulli=True`` says that ``part_dim_fn`` is :func:`si_part_dim` and
+    ``ominus`` :func:`lattice_ominus` (the lattice's series).  On CUDA
+    tensors, in the outer layout ``x (N, 1, d)`` against ``z (1, M, d)`` or
+    the paired one ``x (N, d)`` against ``z (N, d)``, the whole product and
+    sum then run in kernel K5 (``ops/si_cross``), which stores the result
+    once.  CPU tensors keep the loop, and so do two kinds of CUDA call:
+    other layouts (the public ``kernel()`` of points that broadcast
+    otherwise, such as (N, d) against (M, d) with N != M) and calls that
+    need a gradient (a posterior or ``kernel()`` differentiated in its
+    points or hyperparameters), since K5 has no backward.  The serving
+    paths (``post_mean``, ``post_var``, ``post_mean_var``, ``post_cov``)
+    take K5 for every query chunk.  ``factor`` (a task factor, broadcastable against the result) multiplies
+    the result: K5 folds it into its scalar, the loop multiplies afterwards.
     """
+    if bernoulli and x_or_b.is_cuda and _k5_layout(x_or_b, z_or_b) and not (
+            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in
+                                            (x_or_b, z_or_b, scale, lengthscales, factor))):
+        return _k5(x_or_b, z_or_b, beta0, beta1, c0, c1, scale, lengthscales, alpha, factor)
     d = x_or_b.shape[-1]
     alpha = np.broadcast_to(np.asarray(alpha, dtype=np.int64), (d,))
     dtype = scale.dtype
@@ -281,4 +291,46 @@ def kernel_fused_scan(part_dim_fn, x_or_b, z_or_b, ominus, beta0, beta1, c0, c1,
             contrib = prod if w == 1.0 else w * prod
             total = contrib if total is None else total + contrib
     scale_r = scale[..., 0].reshape(tuple(scale.shape[:-1]) + (1,) * sp_ndim)
-    return scale_r * total
+    return times_factor(scale_r * total, factor)
+
+
+def times_factor(kv, factor):
+    """Kernel values ``kv`` times a task ``factor`` (None: unchanged), in
+    place where the product keeps ``kv``'s shape (a query chunk's values
+    are one large buffer)."""
+    if factor is None:
+        return kv
+    return kv.mul_(factor) if factor.dim() <= 2 and kv.dim() >= 2 else kv * factor
+
+
+def _k5_layout(x, z) -> bool:
+    """Whether ``x`` against ``z`` is the outer layout (N, 1, d) against
+    (1, M, d) or the paired one (N, d) against (N, d), which K5 takes."""
+    if x.dim() == 3 and z.dim() == 3:
+        return x.shape[1] == 1 and z.shape[0] == 1 and x.shape[2] == z.shape[2]
+    return x.dim() == 2 and tuple(x.shape) == tuple(z.shape)
+
+
+def _k5(x, z, beta0, beta1, c0, c1, scale, lengthscales, alpha, factor):
+    """:func:`kernel_fused_scan`'s result through K5: the batch dimensions of
+    the scale, the lengthscales and the factor broadcast and flattened into
+    the kernel's rows (views where nothing broadcasts: no device work before
+    the launch)."""
+    d = x.shape[-1]
+    paired = x.dim() == 2
+    ls = lengthscales.to(scale.dtype)
+    if ls.shape[-1] != d:
+        ls = ls.expand(tuple(ls.shape[:-1]) + (d,))
+    sc = scale[..., 0]
+    # the factor without its trailing singleton dimensions (those of the result's points)
+    f = None if factor is None else factor.reshape(tuple(factor.shape[:factor.dim() + 1 - x.dim()]))
+    batch = tuple(np.broadcast_shapes(tuple(sc.shape), tuple(ls.shape[:-1]),
+                                      () if f is None else tuple(f.shape)))
+
+    def flat(t, tail=()):
+        return t.expand(batch + tail).reshape((-1,) + tail).contiguous()
+
+    out = si_cross.si_cross((x if paired else x[:, 0]).contiguous(),
+                            (z if paired else z[0]).contiguous(), alpha, beta0, beta1, c0, c1,
+                            flat(sc), flat(ls, (d,)), None if f is None else flat(f), paired=paired)
+    return out.reshape(batch + tuple(out.shape[1:]))

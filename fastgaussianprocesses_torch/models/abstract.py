@@ -392,7 +392,9 @@ class AbstractGP:
         x = seq(n_min, n_max)
         return x, x
 
-    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales):
+    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales, factor=None):
+        """The kernel of ``x0`` against ``x1`` (broadcasting), times ``factor``
+        where given (a task factor, broadcastable against the result)."""
         raise NotImplementedError
 
     def _query_solver_any(self, raw, n):
@@ -493,12 +495,11 @@ class AbstractGP:
             cols = []
             for l1 in range(self.num_tasks):
                 xb1 = self.get_xb_q(l1, n=n[l1])
-                kv = self._kernel_explicit(x[:, None, :], xb1[None, :, :],
-                                           self.derivatives[t], self.derivatives[l1],
-                                           self.derivatives_coeffs[t],
-                                           self.derivatives_coeffs[l1], scale, ls)
-                ktl = kmat_tasks[..., t, l1, None, None]
-                cols.append(kv.mul_(ktl) if ktl.dim() <= 2 and kv.dim() >= 2 else kv * ktl)
+                cols.append(self._kernel_explicit(x[:, None, :], xb1[None, :, :],
+                                                  self.derivatives[t], self.derivatives[l1],
+                                                  self.derivatives_coeffs[t],
+                                                  self.derivatives_coeffs[l1], scale, ls,
+                                                  factor=kmat_tasks[..., t, l1, None, None]))
             rows.append(_cat(cols, -1)[..., None, :, :])
         return _cat(rows, -3)
 
@@ -536,9 +537,9 @@ class AbstractGP:
     def _prior_diag(self, xc, task, params, kmat_tasks):
         scale, ls = params["scale"], params["lengthscales"]
         return torch.stack([
-            kmat_tasks[..., t, t, None] * self._kernel_explicit(
-                xc, xc, self.derivatives[t], self.derivatives[t],
-                self.derivatives_coeffs[t], self.derivatives_coeffs[t], scale, ls)
+            self._kernel_explicit(xc, xc, self.derivatives[t], self.derivatives[t],
+                                  self.derivatives_coeffs[t], self.derivatives_coeffs[t], scale,
+                                  ls, factor=kmat_tasks[..., t, t, None])
             for t in task], -2)
 
     def post_mean(self, x, task=None):
@@ -698,10 +699,10 @@ class AbstractGP:
 
         def prior_tile(x0c, x1c):
             return torch.stack([torch.stack([
-                kmat_tasks[..., t0, t1, None, None] * self._kernel_explicit(
-                    x0c[:, None, :], x1c[None, :, :], self.derivatives[t0],
-                    self.derivatives[t1], self.derivatives_coeffs[t0],
-                    self.derivatives_coeffs[t1], scale, ls)
+                self._kernel_explicit(x0c[:, None, :], x1c[None, :, :], self.derivatives[t0],
+                                      self.derivatives[t1], self.derivatives_coeffs[t0],
+                                      self.derivatives_coeffs[t1], scale, ls,
+                                      factor=kmat_tasks[..., t0, t1, None, None])
                 for t1 in task1], -3) for t0 in task0], -4)
 
         def solve_rows(x1c):

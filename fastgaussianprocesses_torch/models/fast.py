@@ -419,6 +419,8 @@ class AbstractFastGP(AbstractGP):
 
     # models may provide a side-wise pair evaluator (see kernel_fused_scan)
     _part_dim_pair = None
+    # whether the series is the lattice's Bernoulli one (kernel K5 on the card)
+    _bernoulli_series = False
 
     def _get_k1parts_lam(self, l0, l1, n):
         """First-column parts in the (p0, p1, d, n) layout the solver's
@@ -617,11 +619,12 @@ class AbstractFastGP(AbstractGP):
         return torch.empty((), dtype=self._ftout_dtype()).element_size()
 
     # -- kernel evaluation ----------------------------------------------
-    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales):
+    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales, factor=None):
         # live buffers are O(N * n) whatever d is: never (N, n, d)
         return series.kernel_fused_scan(self._part_dim, x0, x1, self._ominus,
                                         beta0, beta1, c0, c1, scale, lengthscales,
-                                        self.alpha, part_dim_pair_fn=self._part_dim_pair)
+                                        self.alpha, part_dim_pair_fn=self._part_dim_pair,
+                                        bernoulli=self._bernoulli_series, factor=factor)
 
     # -- fast cubature ---------------------------------------------------
     def post_cubature_mean(self, task=None):

@@ -97,6 +97,8 @@ class FastGPLattice(AbstractFastGP):
     def _part_dim(self, delta_j, j, b, k):
         return series.si_part_dim(delta_j, int(self.alpha[j]), b, k)
 
+    _bernoulli_series = True
+
     def _get_k1parts_lam(self, l0, l1, n):
         """Bit-reverse-permuted first-column parts in the (p0, p1, d, n) layout,
         so the solver's transform of the first column needs no gather (under

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..kernels.dense import KERNEL_CLASSES, dense_kernel
+from ..kernels.series import times_factor
 from ..points.digital_net import DigitalNetB2
 from .abstract import AbstractGP, _as_task_array
 
@@ -228,9 +229,9 @@ class StandardGP(AbstractGP):
             self.add_y_next(list(ys), task=list(range(nt)))
 
     # -- kernel ----------------------------------------------------------
-    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales):
-        return dense_kernel(self.kernel_class, x0, x1, beta0, beta1, c0, c1,
-                            scale, lengthscales)
+    def _kernel_explicit(self, x0, x1, beta0, beta1, c0, c1, scale, lengthscales, factor=None):
+        return times_factor(dense_kernel(self.kernel_class, x0, x1, beta0, beta1, c0, c1,
+                                         scale, lengthscales), factor)
 
     # -- solver ----------------------------------------------------------
     def _solver(self, n=None):

@@ -6,6 +6,8 @@ kernels.  Coefficients are the exact rational Bernoulli-polynomial
 coefficients, highest degree first.
 """
 
+import math
+
 import torch
 
 # B_n(x) coefficients, highest power first.
@@ -34,3 +36,15 @@ def bernoulli_poly(order: int, x: torch.Tensor) -> torch.Tensor:
     for c in coeffs[1:]:
         y.mul_(x).add_(c)
     return y
+
+
+def si_coeff(alpha_j: int, b: int, k: int) -> float:
+    """The factor ``(-1)^(alpha_j + k + 1) (2 pi)^(2 alpha_j) / m!`` of
+    ``B_m``, ``m = 2 alpha_j - b - k``, in the lattice's shift-invariant
+    series for one dimension of smoothness ``alpha_j`` and derivative
+    orders ``b``, ``k``."""
+    order = 2 * alpha_j - b - k
+    if order < 2:
+        raise ValueError(f"kernel order must be >= 2, got {order}")
+    return float((-1.0) ** (alpha_j + k + 1)) * math.exp(
+        2 * alpha_j * math.log(2 * math.pi) - math.lgamma(order + 1))

@@ -17,7 +17,8 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "perm_fft.cu", _PKG / "csrc" / "fwht.cu")
+SOURCES = (_PKG / "csrc" / "perm_fft.cu", _PKG / "csrc" / "fwht.cu",
+           _PKG / "csrc" / "si_cross.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC"]
@@ -32,6 +33,7 @@ _SIGNATURES = {
     "fgp_quad": [_P] * 9 + [_I] * 3 + [_P],
     "fgp_fwht": [_P] * 4 + [ctypes.c_longlong] + [_I] * 6 + [ctypes.c_longlong] + [_I] * 3
                 + [_P],
+    "fgp_si_cross": [_P] * 8 + [ctypes.c_longlong] * 2 + [_I] * 6 + [_P],
 }
 
 _lib = None
